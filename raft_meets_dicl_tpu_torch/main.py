@@ -1,0 +1,73 @@
+"""CLI argument parsing and dispatch for the PyTorch/CUDA port.
+
+Counterpart of ``raft_meets_dicl_tpu/main.py``; only ``serve`` is ported.
+
+    python -m raft_meets_dicl_tpu_torch.main serve -c serve.yaml
+    python -m raft_meets_dicl_tpu_torch.main serve -c serve.yaml --device cpu
+
+``serve.yaml`` holds a ``serve:`` section with ``model``, ``buckets`` and
+optionally ``batch-size``, ``max-wait-ms``, ``queue-limit``, ``requests``
+and ``rate``; the keys of parts not ported yet (``wire-format``,
+``checkpoint``, ``ladder``, ``video``, ``quant``) are refused.
+"""
+
+import argparse
+import logging
+
+from . import cmd
+
+
+def build_parser():
+    def fmtcls(prog):
+        return argparse.HelpFormatter(prog, max_help_position=42)
+
+    parser = argparse.ArgumentParser(
+        description="Optical Flow Estimation (PyTorch/CUDA port)",
+        formatter_class=fmtcls)
+    subp = parser.add_subparsers(dest="command", help="help for command")
+
+    serve = subp.add_parser("serve", formatter_class=fmtcls,
+                            help="serve flow inference (continuous "
+                                 "shape-bucketed batching)")
+    serve.add_argument("-c", "--config",
+                       help="serve configuration (yaml/json with a "
+                            "'serve' section; CLI flags win)")
+    serve.add_argument("-m", "--model", help="model specification to serve")
+    serve.add_argument("--buckets", metavar="SPEC",
+                       help="canonical request shapes, comma-separated "
+                            "HxW list, e.g. '368x496,448x1024' (required; "
+                            "also: the config's 'buckets' key)")
+    serve.add_argument("-b", "--batch-size", type=int,
+                       help="device batch size per dispatch [default: 4]")
+    serve.add_argument("--max-wait-ms", type=float,
+                       help="max time a partial batch waits before "
+                            "dispatching padded [default: 50]")
+    serve.add_argument("--queue-limit", type=int,
+                       help="per-bucket admission queue bound; overload "
+                            "sheds with a typed rejection [default: 64]")
+    serve.add_argument("--requests", type=int,
+                       help="built-in open-loop client: request count "
+                            "[default: 32]")
+    serve.add_argument("--rate", type=float,
+                       help="built-in open-loop client: submissions/s "
+                            "[default: 50]")
+    serve.add_argument("--device", default="cuda",
+                       help="torch device: cuda, cuda:N or cpu "
+                            "[default: cuda; fails without CUDA]")
+    return parser
+
+
+def main(argv=None):
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.command is None:
+        parser.print_help()
+        return None
+
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(message)s")
+    return {"serve": cmd.serve}[args.command](args)
+
+
+if __name__ == "__main__":
+    main()

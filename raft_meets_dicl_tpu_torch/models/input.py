@@ -1,0 +1,385 @@
+"""Model input contract: range scaling, modulo padding, shape buckets.
+
+Counterpart of ``raft_meets_dicl_tpu/models/input.py`` lines 20-428, kept
+as host-side numpy (NHWC float32 images): padding, the canonical serving
+shape buckets, and the ``InputSpec`` clip/range/padding contract. The
+dataset loader (``Input``, its adapter and ``collate``) belongs to the
+data path, which a later slice ports (ROADMAP queue A).
+"""
+
+import copy
+from dataclasses import replace
+
+import numpy as np
+
+
+# numpy pad modes shared by every padding flavor; the aliases map the
+# reference configs' torch-style names onto the equivalent numpy modes
+_NUMPY_PAD_MODES = (
+    "edge", "maximum", "mean", "median", "minimum", "reflect",
+    "symmetric", "wrap",
+)
+_PAD_MODE_ALIASES = {
+    "zeros": ("constant", {"constant_values": 0.0}),
+    "ones": ("constant", {"constant_values": 1.0}),
+    "torch.replicate": ("edge", {}),
+    "torch.reflect": ("reflect", {}),
+    "torch.circular": ("wrap", {}),
+}
+
+
+def _raw_pad_constant(value, clip, range):
+    """Map a *normalized-space* constant padding value into raw space.
+
+    Wire-format pipelines pad un-normalized values on the host; the
+    device-side clip+scale must map the padding back onto the configured
+    normalized constant, so the raw constant is the inverse normalization
+    (clamped into the clip interval, which the normalization saturates
+    anyway)."""
+    rmin, rmax = range
+    lo, hi = clip
+    c = (value - rmin) / (rmax - rmin)
+    return float(min(max(c, lo), hi))
+
+
+def _pad_arrays(img1, img2, flow, valid, meta, pad_h, pad_w, mode, args):
+    """Pad one NHWC sample batch by ``pad_h=(top, bottom)`` /
+    ``pad_w=(left, right)``: images with ``mode``, flow/valid always
+    zero-padded (padded pixels are invalid), metadata extents shifted."""
+    ph1, ph2 = pad_h
+    pw1, pw2 = pad_w
+
+    pad4 = ((0, 0), (ph1, ph2), (pw1, pw2), (0, 0))
+    pad3 = ((0, 0), (ph1, ph2), (pw1, pw2))
+
+    img1 = np.pad(img1, pad4, mode=mode, **args)
+    img2 = np.pad(img2, pad4, mode=mode, **args)
+
+    if flow is not None:
+        flow = np.pad(flow, pad4, mode="constant", constant_values=0)
+        valid = np.pad(valid, pad3, mode="constant", constant_values=False)
+
+    # new Metadata objects — sources may hand out the same instances on
+    # every access (e.g. wrap_single), so in-place shifts would accumulate
+    meta = [
+        replace(
+            m,
+            original_extents=(
+                (m.original_extents[0][0] + ph1, m.original_extents[0][1] + ph1),
+                (m.original_extents[1][0] + pw1, m.original_extents[1][1] + pw1),
+            ),
+        )
+        for m in meta
+    ]
+
+    return img1, img2, flow, valid, meta
+
+
+class Padding:
+    type = None
+
+    @classmethod
+    def _typecheck(cls, cfg):
+        if cfg["type"] != cls.type:
+            raise ValueError(f"invalid padding type '{cfg['type']}', expected '{cls.type}'")
+
+    def get_config(self):
+        raise NotImplementedError
+
+    def apply(self, img1, img2, flow, valid, meta):
+        raise NotImplementedError
+
+    def __call__(self, img1, img2, flow, valid, meta):
+        return self.apply(img1, img2, flow, valid, meta)
+
+    def raw_variant(self, clip, range):
+        """Variant for un-normalized (wire-format) pipelines.
+
+        Constant padding values are defined in *normalized* space
+        ("zeros" pads with normalized 0); when normalization moves into
+        the device step, the host pads raw values, so constants must be
+        mapped through the inverse normalization. Non-constant modes
+        (edge/reflect/...) are value-independent and pass through.
+        """
+        return self
+
+
+class ModuloPadding(Padding):
+    """Pad images to a multiple of ``size`` with configurable alignment.
+
+    Flow/valid are always zero-padded (padded pixels are invalid);
+    ``meta.original_extents`` shifts so outputs can be cropped back.
+    ``torch.replicate``/``torch.reflect``/``torch.circular`` mode aliases
+    from reference configs map onto the equivalent numpy modes.
+    """
+
+    type = "modulo"
+
+    _NUMPY_MODES = _NUMPY_PAD_MODES
+    _ALIASES = _PAD_MODE_ALIASES
+
+    @classmethod
+    def from_config(cls, cfg):
+        cls._typecheck(cfg)
+
+        size = [int(x) for x in cfg["size"]]
+        if len(size) != 2:
+            raise ValueError("expected list/tuple of 2 integers for attribute 'size'")
+
+        return cls(
+            cfg["mode"],
+            size,
+            align_hz=cfg.get("align-horizontal", "left"),
+            align_vt=cfg.get("align-vertical", "top"),
+        )
+
+    def __init__(self, mode, size, align_hz="left", align_vt="top"):
+        super().__init__()
+
+        if mode not in self._NUMPY_MODES and mode not in self._ALIASES:
+            raise ValueError(f"invalid padding mode: {mode}")
+        if align_hz not in ("left", "center", "right"):
+            raise ValueError(f"invalid horizontal alignment for padding: {align_hz}")
+        if align_vt not in ("bottom", "center", "top"):
+            raise ValueError(f"invalid vertical alignment for padding: {align_vt}")
+
+        self.mode = mode
+        self.size = size
+        self.align_hz = align_hz
+        self.align_vt = align_vt
+
+    def get_config(self):
+        return {
+            "type": self.type,
+            "mode": self.mode,
+            "size": self.size,
+            "align-horizontal": self.align_hz,
+            "align-vertical": self.align_vt,
+        }
+
+    def _split(self, total, align_lo_name, align):
+        if align == align_lo_name:
+            return 0, total
+        if align == "center":
+            return total // 2, total - total // 2
+        return total, 0
+
+    def raw_variant(self, clip, range):
+        mode, args = self._ALIASES.get(self.mode, (self.mode, {}))
+        if "constant_values" not in args:
+            return self
+        out = copy.copy(self)
+        # raw-space constant, clipped into the clip interval so the
+        # device-side clip+scale maps it back to the normalized constant
+        out._raw_constant = _raw_pad_constant(
+            args["constant_values"], clip, range)
+        return out
+
+    def apply(self, img1, img2, flow, valid, meta):
+        mode, args = self._ALIASES.get(self.mode, (self.mode, {}))
+        raw = getattr(self, "_raw_constant", None)
+        if raw is not None and "constant_values" in args:
+            args = dict(args, constant_values=raw)
+
+        _, h, w, _ = img1.shape
+        new_h = -(-h // self.size[1]) * self.size[1]
+        new_w = -(-w // self.size[0]) * self.size[0]
+        if (new_h, new_w) == (h, w):
+            # already aligned: np.pad with zero widths would still copy
+            # every array
+            return img1, img2, flow, valid, meta
+
+        pad_h = self._split(new_h - h, "top", self.align_vt)
+        pad_w = self._split(new_w - w, "left", self.align_hz)
+
+        return _pad_arrays(img1, img2, flow, valid, meta, pad_h, pad_w,
+                           mode, args)
+
+
+_PADDINGS = {ModuloPadding.type: ModuloPadding}
+
+
+def _build_padding(cfg):
+    if cfg is None:
+        return None
+    return _PADDINGS[cfg["type"]].from_config(cfg)
+
+
+class ShapeBuckets:
+    """Canonical evaluation shapes: quantize mixed per-sample resolutions
+    up to a small fixed set so a whole sweep runs at most ``len(sizes)``
+    device shapes instead of one per distinct padded shape.
+
+    Each sample is padded (bottom/right, so ``meta.original_extents``
+    stays put) from its modulo-padded size up to the smallest configured
+    bucket that fits; the ``valid`` mask is extended with ``False`` over
+    the padded pixels, so masked metrics (EPE, Fl-all, the masked losses)
+    provably never see them. An empty ``sizes`` list is the pure
+    *grouping* policy (no quantization pad), which the data path's loader
+    uses; serving needs explicit sizes.
+
+    Assignment is deterministic: buckets are ordered by (area, height,
+    width) and the first one that fits both dimensions wins; samples
+    larger than every bucket keep their own shape (they batch among
+    themselves at their own shape).
+    """
+
+    def __init__(self, sizes=(), mode="zeros"):
+        if mode not in _NUMPY_PAD_MODES and mode not in _PAD_MODE_ALIASES:
+            raise ValueError(f"invalid bucket padding mode: {mode}")
+
+        parsed = []
+        for hw in sizes:
+            h, w = (int(x) for x in hw)
+            if h <= 0 or w <= 0:
+                raise ValueError(f"invalid bucket size {hw!r}")
+            parsed.append((h, w))
+
+        self.sizes = sorted(set(parsed), key=lambda s: (s[0] * s[1], s))
+        self.mode = mode
+
+    @classmethod
+    def from_config(cls, cfg):
+        """``None`` | spec string (see :meth:`parse`) | mapping with
+        ``sizes`` (list of [H, W]) and optional ``mode``."""
+        if cfg is None:
+            return None
+        if isinstance(cfg, str):
+            return cls.parse(cfg)
+        if isinstance(cfg, (list, tuple)):
+            return cls(cfg)
+        return cls(cfg.get("sizes", ()), cfg.get("mode", "zeros"))
+
+    @classmethod
+    def parse(cls, spec):
+        """CLI/env spec: ``'group'`` (shape grouping only) or a
+        comma-separated ``HxW`` list, e.g. ``'384x1280,448x1024'``."""
+        spec = spec.strip()
+        if not spec:
+            return None
+        if spec in ("group", "shape"):
+            return cls(())
+        sizes = []
+        for part in spec.split(","):
+            try:
+                h, w = part.strip().lower().split("x")
+                sizes.append((int(h), int(w)))
+            except ValueError:
+                raise ValueError(
+                    f"invalid bucket spec '{part.strip()}' in '{spec}': "
+                    "expected 'group' or a comma-separated HxW list "
+                    "like '384x1280,448x1024'") from None
+        return cls(sizes)
+
+    def get_config(self):
+        return {"sizes": [list(s) for s in self.sizes], "mode": self.mode}
+
+    def describe(self):
+        if not self.sizes:
+            return "group-by-shape (no canonical sizes)"
+        return ", ".join(f"{h}x{w}" for h, w in self.sizes)
+
+    def assign(self, h, w):
+        """Smallest-area bucket fitting an (h, w) sample, or None when no
+        bucket fits (the sample keeps its own shape)."""
+        for bh, bw in self.sizes:
+            if bh >= h and bw >= w:
+                return bh, bw
+        return None
+
+    def check_compatible(self, padding):
+        """Every bucket must satisfy the model's modulo constraint, else
+        the quantized shapes would be rejected by the network's pyramid —
+        fail at config time with the offending bucket named."""
+        if padding is None or not isinstance(padding, ModuloPadding):
+            return
+        mw, mh = padding.size  # config order: (w multiple, h multiple)
+        for bh, bw in self.sizes:
+            if bh % mh or bw % mw:
+                raise ValueError(
+                    f"bucket {bh}x{bw} is not a multiple of the input "
+                    f"padding size {mh}x{mw} (h x w): the model would "
+                    "reject the quantized shape")
+
+    def raw_variant(self, clip, range):
+        """Variant for un-normalized (wire-format) pipelines: constant
+        padding values translate into raw space (see ModuloPadding)."""
+        mode, args = _PAD_MODE_ALIASES.get(self.mode, (self.mode, {}))
+        if "constant_values" not in args:
+            return self
+        out = ShapeBuckets(self.sizes, self.mode)
+        out._raw_constant = _raw_pad_constant(
+            args["constant_values"], clip, range)
+        return out
+
+    def pad_image(self, img, bucket):
+        """Pad a single HWC (or NHWC) image up to ``bucket`` bottom/right.
+
+        The serving admission path pads each request's images directly to
+        their assigned bucket (``check_compatible`` guarantees buckets
+        satisfy the model's modulo constraint, so no intermediate modulo
+        pad is needed); on a ``raw_variant`` the constant translates into
+        raw space exactly like the batch path.
+        """
+        h, w = img.shape[-3], img.shape[-2]
+        bh, bw = bucket
+        if (h, w) == (bh, bw):
+            return img
+
+        mode, args = _PAD_MODE_ALIASES.get(self.mode, (self.mode, {}))
+        raw = getattr(self, "_raw_constant", None)
+        if raw is not None and "constant_values" in args:
+            args = dict(args, constant_values=raw)
+
+        pad = [(0, 0)] * (img.ndim - 3) + [(0, bh - h), (0, bw - w), (0, 0)]
+        return np.pad(img, pad, mode=mode, **args)
+
+    def pad(self, img1, img2, flow, valid, meta):
+        """Pad one sample batch up to its bucket (no-op when no bucket
+        fits or the sample already sits on one)."""
+        _, h, w, _ = img1.shape
+        bucket = self.assign(h, w)
+        if bucket is None or bucket == (h, w):
+            return img1, img2, flow, valid, meta
+
+        mode, args = _PAD_MODE_ALIASES.get(self.mode, (self.mode, {}))
+        raw = getattr(self, "_raw_constant", None)
+        if raw is not None and "constant_values" in args:
+            args = dict(args, constant_values=raw)
+
+        bh, bw = bucket
+        return _pad_arrays(img1, img2, flow, valid, meta,
+                           (0, bh - h), (0, bw - w), mode, args)
+
+    def __call__(self, img1, img2, flow, valid, meta):
+        return self.pad(img1, img2, flow, valid, meta)
+
+
+class InputSpec:
+    """Model input contract: clip range, value range, optional padding."""
+
+    @classmethod
+    def from_config(cls, cfg):
+        cfg = cfg if cfg is not None else {}
+
+        clip = [float(x) for x in cfg.get("clip", (0, 1))]
+        if len(clip) != 2:
+            raise ValueError("invalid value for 'clip', expected list/tuple of two floats")
+
+        range_ = cfg.get("range", (-1, 1))
+        if len(range_) != 2:
+            raise ValueError("invalid value for 'range', expected list/tuple of two floats")
+
+        return cls(clip, range_, _build_padding(cfg.get("padding")))
+
+    def __init__(self, clip=(0.0, 1.0), range=(-1.0, 1.0), padding=None):
+        self.clip = clip
+        self.range = range
+        self.padding = padding
+
+    def get_config(self):
+        return {
+            "clip": self.clip,
+            "range": self.range,
+            "padding": self.padding.get_config() if self.padding is not None else None,
+        }

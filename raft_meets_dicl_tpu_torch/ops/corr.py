@@ -1,0 +1,121 @@
+"""Correlation pyramid and windowed lookup in plain torch.
+
+Counterpart of ``raft_meets_dicl_tpu/ops/corr.py`` (the parts on the
+``raft/baseline`` path). Same conventions: features NHWC ``(B, H, W, C)``;
+coords ``(B, H, W, 2)`` pixel positions with channel 0 = x, 1 = y; the
+per-level lookup windows are ``(dy, dx)``-ordered, and the flat channel
+contract (``window_delta``, the motion encoder's first conv) is
+``(level, dx, dy)``.
+
+Each pyramid level is one batched matmul against a pooled frame-2 map
+(pooling commutes with the dot product). The bilinear window lookup is
+the same hat-weight contraction as the JAX package: it equals
+``F.grid_sample(align_corners=True, padding_mode='zeros')`` and needs no
+coordinate normalization (exact on 1-pixel levels too).
+"""
+
+import math
+
+import torch
+
+
+def _pool2x_spatial(fmap):
+    """Average-pool the H, W axes of a (B, H, W, C) feature map by 2
+    (floor semantics like ``F.avg_pool2d``). Accumulates in float32."""
+    b, h, w, c = fmap.shape
+    x = fmap[:, : h // 2 * 2, : w // 2 * 2].float()
+    x = x.reshape(b, h // 2, 2, w // 2, 2, c).mean(dim=(2, 4))
+    return x.to(fmap.dtype)
+
+
+def correlation_pyramid_direct(fmap1, fmap2, num_levels=4, dtype=None):
+    """Pyramid of all-pairs volumes ``(B, H, W, H2_l, W2_l)`` against
+    progressively pooled frame-2 maps.
+
+    Each level is a matmul in the feature dtype (bf16 under the mixed
+    policy: float32 accumulation, one rounding), scaled by 1/sqrt(C) in
+    float32 and cast to ``dtype``.
+    """
+    b, h, w, c = fmap1.shape
+    scale = 1.0 / math.sqrt(c)
+    f1 = fmap1.reshape(b, h * w, c)
+
+    pyramid = []
+    f2 = fmap2
+    for lvl in range(num_levels):
+        h2, w2 = f2.shape[1:3]
+        corr = torch.matmul(f1, f2.reshape(b, h2 * w2, c).transpose(1, 2))
+        corr = (corr.float() * scale).reshape(b, h, w, h2, w2)
+        pyramid.append(corr.to(dtype) if dtype is not None else corr)
+        if lvl + 1 < num_levels:
+            f2 = _pool2x_spatial(f2)
+    return pyramid
+
+
+def window_offsets(radius, dtype=torch.float32, device=None):
+    """(2r+1,) per-axis window offsets: -r, ..., 0, ..., r."""
+    return torch.linspace(-radius, radius, 2 * radius + 1, dtype=dtype,
+                          device=device)
+
+
+def window_delta(radius, dtype=torch.float32, device=None):
+    """(K, K, 2) window offsets; axis 0 varies x, axis 1 varies y:
+    delta[a, b] = (dx_a, dy_b) (the flat channel order is dx-major)."""
+    d = window_offsets(radius, dtype, device)
+    dx, dy = torch.meshgrid(d, d, indexing="ij")
+    return torch.stack((dx, dy), dim=-1)
+
+
+def _interp_matrix(positions, size):
+    """Bilinear hat weights over an axis: (..., K) positions -> (..., K,
+    size) with ``w[..., k, i] = max(0, 1 - |positions[..., k] - i|)``."""
+    idx = torch.arange(size, dtype=positions.dtype, device=positions.device)
+    return torch.clamp(1.0 - torch.abs(positions[..., None] - idx), min=0.0)
+
+
+def _lookup_level(corr, x, y):
+    """Bilinearly sample a (B, H1, W1, H2, W2) volume at per-position
+    windows. x, y: (B, H1, W1, K) pixel positions along W2 / H2. Returns
+    (B, H1, W1, K_dy, K_dx) in float32.
+
+    Under the bf16 policy the hat weights are bf16 too and the first
+    contraction rounds to bf16, as in the JAX package; the second, tiny
+    one runs in float32.
+    """
+    b, h1, w1, h2, w2 = corr.shape
+    k = x.shape[-1]
+    wy = _interp_matrix(y, h2).to(corr.dtype).reshape(-1, k, h2)
+    wx = _interp_matrix(x, w2).to(corr.dtype).reshape(-1, k, w2)
+
+    t = torch.matmul(wy, corr.reshape(-1, h2, w2))         # (N, K_dy, W2)
+    out = torch.matmul(t.float(), wx.float().transpose(1, 2))  # (N, K_dy, K_dx)
+    return out.reshape(b, h1, w1, k, k)
+
+
+def lookup_pyramid_levels(pyramid, coords, radius, mask_costs=()):
+    """Windowed lookup, one (B, H, W, K_dy, K_dx) tensor per pyramid level.
+
+    ``mask_costs`` zeroes whole levels by pyramid level id (i + 3, the
+    downsampling octave), the reference convention.
+    """
+    d = window_offsets(radius, coords.dtype, coords.device)
+
+    out = []
+    for lvl, corr in enumerate(pyramid):
+        centers = coords / (2**lvl)
+        x = centers[..., 0:1] + d  # (B, H, W, K) window positions along W2
+        y = centers[..., 1:2] + d  # (B, H, W, K) window positions along H2
+        level = _lookup_level(corr, x, y)
+        if lvl + 3 in mask_costs:
+            level = torch.zeros_like(level)
+        out.append(level)
+
+    return out
+
+
+def flatten_levels(levels):
+    """Per-level (dy, dx) windows -> (B, H, W, L*K*K) in the flat
+    ``(level, dx, dy)`` channel contract."""
+    b, h, w = levels[0].shape[:3]
+    return torch.cat([lvl.transpose(3, 4).reshape(b, h, w, -1)
+                      for lvl in levels], dim=-1)

@@ -1,0 +1,219 @@
+"""Request types + per-bucket coalescing for the serving path.
+
+Copy of ``raft_meets_dicl_tpu/serve/batcher.py`` (the port imports nothing
+of the JAX package). The batcher is the host-side half of continuous
+batching: every admitted request is quantized onto the canonical
+:class:`~..models.input.ShapeBuckets` set at admission (so its device
+batch shape is known before it ever queues), then coalesced with
+same-bucket neighbors into full device batches. A bucket whose queue
+reaches the batch size dispatches immediately; a partial batch dispatches
+once its oldest request has waited the configured deadline, filled up to
+the full batch size by tiling the last request, so every dispatch of a
+bucket runs at one shape.
+
+This module is numpy-only: everything device-side lives in the session.
+"""
+
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+
+
+class ServeRejected(RuntimeError):
+    """Typed admission rejection: the request never entered the system.
+
+    ``reason`` is the machine-readable shed class (``queue_full`` for
+    backpressure). Sheds are the admission-control contract — the
+    dispatch loop never stalls to absorb overload; callers retry or
+    back off.
+    """
+
+    def __init__(self, reason, detail=""):
+        self.reason = reason
+        super().__init__(f"request rejected ({reason})"
+                         + (f": {detail}" if detail else ""))
+
+
+class ServeError(RuntimeError):
+    """Typed per-request failure.
+
+    ``kind`` is one of:
+
+    - ``malformed`` — the payload failed validation at admission;
+    - ``oversized`` — the pair fits no configured bucket;
+    - ``decode`` — the request failed while its batch was being
+      prepared/decoded (the rest of the batch is unaffected);
+    - ``internal`` — the dispatch failed; the batch's requests all carry
+      this error, the loop continues;
+    - ``unknown_class`` — the latency class does not exist (or the
+      session has no ladder);
+    - ``no_video`` — a sequence request reached a session built without
+      video support (``serve --video``).
+    """
+
+    def __init__(self, kind, detail=""):
+        self.kind = kind
+        super().__init__(f"request failed ({kind})"
+                         + (f": {detail}" if detail else ""))
+
+
+@dataclass
+class FlowRequest:
+    """One admitted image pair, already quantized and wire-encoded.
+
+    ``img1``/``img2`` are bucket-shaped arrays in the wire dtype (the
+    admission path pads raw pixels up to the bucket and encodes them, so
+    the dispatch loop only stacks). ``shape`` keeps the original (H, W)
+    for cropping the response.
+    """
+
+    rid: int
+    client: str
+    seq: int
+    bucket: Tuple[int, int]
+    shape: Tuple[int, int]
+    img1: np.ndarray
+    img2: np.ndarray
+    ticket: Any
+    t_submit: float
+    t_enqueue: float = 0.0
+    klass: str = ""  # latency class ("" = plain eval, no ladder)
+    sequence: bool = False  # video-session member (warm-start eligible)
+    products: bool = False  # also wants fw/bw occlusion + confidence
+    spans: Dict[str, float] = field(default_factory=dict)
+    trace: Any = None  # telemetry.trace.RequestTrace (None = untraced)
+
+
+@dataclass
+class FlowResult:
+    """One served flow: cropped to the request's original extent, with
+    the per-request latency spans (seconds) the telemetry event carries:
+    ``admission`` (validate + quantize + encode), ``queue`` (enqueue to
+    dispatch), ``dispatch`` (batch assembly + forward), ``device``
+    (result fetch)."""
+
+    rid: int
+    client: str
+    bucket: Tuple[int, int]
+    shape: Tuple[int, int]
+    flow: np.ndarray
+    spans: Dict[str, float]
+    klass: str = ""
+    iterations: int = 0  # recurrence iterations actually executed
+    warm: bool = False   # video session: started from a cached carry
+    occlusion: Optional[np.ndarray] = None   # fw/bw products (H, W) bool
+    confidence: Optional[np.ndarray] = None  # fw/bw products (H, W) f32
+
+
+class BucketBatcher:
+    """Bounded per-lane FIFO queues + deterministic batch selection.
+
+    A lane is ``(bucket, klass, sequence)`` — requests only coalesce
+    with same-bucket, same-latency-class, same-sequence-ness neighbors,
+    so every dispatched batch runs one ladder policy (or the video
+    warm-start program) end to end. Without a ladder or video sessions
+    every request carries the empty class and lanes degenerate to plain
+    per-bucket queues.
+
+    Selection policy (documented because tests pin it): full batches
+    first — among lanes holding at least ``batch_size`` requests, the
+    one whose head request enqueued earliest wins (ties broken by bucket
+    size then class). With no full batch, the oldest head whose wait
+    exceeded the caller's deadline dispatches as a partial. Within a
+    lane, order is strict FIFO. Everything keys on the monotonic
+    enqueue stamp plus the lane tuple, so the same submission sequence
+    always coalesces identically. ``take`` returns the *bucket* (the
+    device batch shape); the batch's class rides on its requests.
+    """
+
+    def __init__(self, buckets, batch_size, queue_limit):
+        if not buckets.sizes:
+            raise ValueError(
+                "serving needs explicit bucket sizes ('HxW,...'): the "
+                "warm-up runs per bucket")
+        self.buckets = buckets
+        self.batch_size = int(batch_size)
+        self.queue_limit = int(queue_limit)
+        self._queues = {(b, "", False): deque() for b in buckets.sizes}
+
+    def assign(self, h, w) -> Optional[Tuple[int, int]]:
+        """Smallest bucket fitting (h, w), or None (oversized)."""
+        return self.buckets.assign(h, w)
+
+    def encode_pair(self, img1, img2, bucket, encode):
+        """Pad a raw HWC pair up to ``bucket`` and wire-encode it."""
+        img1 = self.buckets.pad_image(img1, bucket)
+        img2 = self.buckets.pad_image(img2, bucket)
+        return encode(img1), encode(img2)
+
+    def offer(self, request) -> bool:
+        """Enqueue, or refuse (lane queue at bound — backpressure)."""
+        lane = (request.bucket, getattr(request, "klass", ""),
+                getattr(request, "sequence", False))
+        q = self._queues.setdefault(lane, deque())
+        if len(q) >= self.queue_limit:
+            return False
+        request.t_enqueue = time.perf_counter()
+        q.append(request)
+        return True
+
+    def pending(self) -> int:
+        return sum(len(q) for q in self._queues.values())
+
+    def depths(self) -> Dict[str, int]:
+        """Per-lane queue depths keyed ``HxW[/klass][/seq]`` (klass
+        omitted for the empty ladderless class, ``/seq`` marking video
+        session lanes) — the /statusz live snapshot."""
+        out = {}
+        for (bucket, klass, sequence), q in sorted(self._queues.items()):
+            name = f"{bucket[0]}x{bucket[1]}"
+            if klass:
+                name = f"{name}/{klass}"
+            if sequence:
+                name = f"{name}/seq"
+            out[name] = len(q)
+        return out
+
+    def take(self, now, max_wait_s, drain=False):
+        """Next dispatchable batch, or the wake-up deadline.
+
+        Returns ``(bucket, requests)`` when a batch should dispatch now,
+        else ``(None, deadline)`` where ``deadline`` is the absolute
+        ``perf_counter`` time the oldest partial becomes dispatchable
+        (None when every queue is empty). ``drain`` dispatches partials
+        immediately (shutdown flush).
+        """
+        full = [(q[0].t_enqueue, lane) for lane, q in self._queues.items()
+                if len(q) >= self.batch_size]
+        if full:
+            _, lane = min(full)
+            return lane[0], self._pop(lane)
+
+        heads = [(q[0].t_enqueue, lane)
+                 for lane, q in self._queues.items() if q]
+        if not heads:
+            return None, None
+        t_head, lane = min(heads)
+        if drain or now - t_head >= max_wait_s:
+            return lane[0], self._pop(lane)
+        return None, t_head + max_wait_s
+
+    def _pop(self, lane):
+        q = self._queues[lane]
+        return [q.popleft() for _ in range(min(len(q), self.batch_size))]
+
+    def assemble(self, requests):
+        """Stack a batch's encoded pairs, filling up to ``batch_size``
+        by tiling the last request (partial batches ride the full
+        batch's shape; filled outputs are dropped by the
+        response crop). Returns ``(img1, img2, fill)``."""
+        img1 = np.stack([r.img1 for r in requests])
+        img2 = np.stack([r.img2 for r in requests])
+        fill = self.batch_size - len(requests)
+        if fill > 0:
+            img1 = np.concatenate([img1, np.repeat(img1[-1:], fill, axis=0)])
+            img2 = np.concatenate([img2, np.repeat(img2[-1:], fill, axis=0)])
+        return img1, img2, fill

@@ -1,0 +1,247 @@
+"""Continuous-batching request scheduler for the serving path.
+
+Counterpart of ``raft_meets_dicl_tpu/serve/scheduler.py`` (the plain
+dispatch branch). One dispatch thread pulls batches from the
+:class:`BucketBatcher` and runs them through a
+:class:`~.session.ServeSession`; callers submit image pairs from any
+thread and block on the returned :class:`Ticket`. The invariants:
+
+- **The dispatch loop never stalls.** Overload sheds at admission with a
+  typed :class:`ServeRejected` (bounded per-bucket queues). A batch whose
+  dispatch raises completes each of its tickets with a typed
+  :class:`ServeError` (``internal``) that carries the original exception
+  as its cause; the failure is logged with its traceback and counted in
+  :attr:`Scheduler.errors`, and the loop carries on.
+- **Sticky per-client ordering.** Responses release to each client in
+  submission order.
+
+Telemetry, SLO tracking, fault injection, ladder classes and video
+sessions come with later slices (ROADMAP queue A).
+"""
+
+import logging
+import threading
+import time
+
+import numpy as np
+
+from .batcher import (BucketBatcher, FlowRequest, FlowResult, ServeError,
+                      ServeRejected)
+
+# the dispatch loop wakes at least this often even when idle
+_IDLE_WAKE_S = 1.0
+
+DEFAULT_MAX_WAIT_MS = 50.0
+DEFAULT_QUEUE_LIMIT = 64
+
+
+class Ticket:
+    """Caller handle for one admitted request: blocks on :meth:`result`
+    until the scheduler releases the response (in per-client submission
+    order)."""
+
+    def __init__(self, rid, client):
+        self.rid = rid
+        self.client = client
+        self._event = threading.Event()
+        self._result = None
+        self._error = None
+
+    def _complete(self, result=None, error=None):
+        self._result = result
+        self._error = error
+        self._event.set()
+
+    def done(self):
+        return self._event.is_set()
+
+    def result(self, timeout=None):
+        """The :class:`FlowResult`, or raises the request's typed
+        :class:`ServeError`; ``TimeoutError`` if nothing arrives in
+        ``timeout`` seconds."""
+        if not self._event.wait(timeout):
+            raise TimeoutError(f"request {self.rid} still in flight "
+                               f"after {timeout} s")
+        if self._error is not None:
+            raise self._error
+        return self._result
+
+
+class Scheduler:
+    """Admission control + dispatch loop over one serve session.
+
+    ``batches`` counts dispatched device batches and ``errors`` the
+    requests that failed in dispatch.
+    """
+
+    def __init__(self, session, batch_size=None,
+                 max_wait_ms=DEFAULT_MAX_WAIT_MS,
+                 queue_limit=DEFAULT_QUEUE_LIMIT):
+        if batch_size is None:
+            batch_size = session.batch_size
+        self.session = session
+        self.batcher = BucketBatcher(session.buckets, batch_size, queue_limit)
+        self.max_wait_s = float(max_wait_ms) / 1e3
+
+        self.batches = 0
+        self.errors = 0
+
+        self._lock = threading.Lock()
+        self._cond = threading.Condition(self._lock)
+        self._rid = 0
+        self._seq = {}            # client -> next sequence number to assign
+        self._release_next = {}   # client -> next sequence number to release
+        self._held = {}           # client -> {seq: (request, result, error)}
+        self._stopping = False
+        self._thread = None
+
+    # -- admission (caller threads) -----------------------------------------
+
+    def submit(self, img1, img2, client="default"):
+        """Admit one raw (un-normalized f32 HWC) image pair.
+
+        Returns a :class:`Ticket` on acceptance. Raises synchronously:
+        :class:`ServeError` (``malformed``/``oversized``) when the payload
+        can never be served, :class:`ServeRejected` (``queue_full``/
+        ``shutdown``) when the system sheds it.
+        """
+        t0 = time.perf_counter()
+        with self._lock:
+            rid = self._rid
+            self._rid += 1
+
+        self._validate(img1, img2)
+        h, w = int(img1.shape[0]), int(img1.shape[1])
+        bucket = self.batcher.assign(h, w)
+        if bucket is None:
+            raise ServeError(
+                "oversized",
+                f"{h}x{w} fits no bucket ({self.session.buckets.describe()})")
+
+        e1, e2 = self.batcher.encode_pair(img1, img2, bucket,
+                                          self.session.encode_image)
+        ticket = Ticket(rid, client)
+        req = FlowRequest(rid=rid, client=client, seq=0, bucket=bucket,
+                          shape=(h, w), img1=e1, img2=e2, ticket=ticket,
+                          t_submit=t0)
+
+        with self._cond:
+            if self._stopping:
+                raise ServeRejected("shutdown")
+            req.spans["admission"] = time.perf_counter() - t0
+            if not self.batcher.offer(req):
+                raise ServeRejected(
+                    "queue_full",
+                    f"bucket {bucket[0]}x{bucket[1]} queue at bound "
+                    f"({self.batcher.queue_limit})")
+            req.seq = self._seq.get(client, 0)
+            self._seq[client] = req.seq + 1
+            self._cond.notify()
+        return ticket
+
+    def _validate(self, img1, img2):
+        for img in (img1, img2):
+            if not isinstance(img, np.ndarray) or img.ndim != 3 \
+                    or img.shape[-1] != 3:
+                raise ServeError(
+                    "malformed",
+                    f"expected HWC RGB arrays, got "
+                    f"{getattr(img, 'shape', type(img).__name__)}")
+        if img1.shape != img2.shape:
+            raise ServeError(
+                "malformed", f"pair shapes differ: {img1.shape} vs "
+                             f"{img2.shape}")
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def start(self):
+        self._thread = threading.Thread(
+            target=self._loop, name="serve-dispatch", daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self, drain=True):
+        """Stop admitting; by default drain queued requests (partials
+        dispatch immediately), otherwise fail them with a typed error."""
+        flushed = []
+        with self._cond:
+            self._stopping = True
+            if not drain:
+                while True:
+                    bucket, batch = self.batcher.take(
+                        time.perf_counter(), 0.0, drain=True)
+                    if bucket is None:
+                        break
+                    flushed.extend(batch)
+            self._cond.notify_all()
+        for r in flushed:
+            self._complete(r, error=ServeError("internal", "shutdown"))
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    # -- dispatch loop -------------------------------------------------------
+
+    def _loop(self):
+        while True:
+            with self._cond:
+                while True:
+                    now = time.perf_counter()
+                    bucket, batch = self.batcher.take(
+                        now, self.max_wait_s, drain=self._stopping)
+                    if bucket is not None:
+                        break
+                    if self._stopping:
+                        return
+                    deadline = batch  # (None, deadline) overload of take()
+                    timeout = (_IDLE_WAKE_S if deadline is None
+                               else min(_IDLE_WAKE_S, max(0.0, deadline - now)))
+                    self._cond.wait(timeout)
+            try:
+                self._dispatch(bucket, batch)
+            except Exception as e:  # noqa: BLE001 - the loop must survive
+                logging.exception(f"serve: dispatch of a {len(batch)}-request "
+                                  f"batch at {bucket[0]}x{bucket[1]} failed")
+                for r in batch:
+                    err = ServeError("internal", f"{type(e).__name__}: {e}")
+                    err.__cause__ = e
+                    self._complete(r, error=err)
+
+    def _dispatch(self, bucket, batch):
+        t0 = time.perf_counter()
+        for r in batch:
+            r.spans["queue"] = t0 - r.t_enqueue
+
+        img1, img2, _ = self.batcher.assemble(batch)
+        flow = self.session.run(img1, img2)
+        self.batches += 1
+        t1 = time.perf_counter()
+        flow = self.session.fetch(flow)
+        t2 = time.perf_counter()
+
+        for i, r in enumerate(batch):
+            h, w = r.shape
+            r.spans["dispatch"] = t1 - t0
+            r.spans["device"] = t2 - t1
+            self._complete(r, result=FlowResult(
+                rid=r.rid, client=r.client, bucket=bucket, shape=r.shape,
+                flow=flow[i, :h, :w, :], spans=r.spans))
+
+    # -- completion / sticky per-client release ------------------------------
+
+    def _complete(self, req, result=None, error=None):
+        with self._lock:
+            if error is not None:
+                self.errors += 1
+            held = self._held.setdefault(req.client, {})
+            held[req.seq] = (req, result, error)
+            nxt = self._release_next.get(req.client, 0)
+            ready = []
+            while nxt in held:
+                ready.append(held.pop(nxt))
+                nxt += 1
+            self._release_next[req.client] = nxt
+        for r, res, err in ready:
+            if err is None:
+                res.spans["total"] = time.perf_counter() - r.t_submit
+            r.ticket._complete(result=res, error=err)
