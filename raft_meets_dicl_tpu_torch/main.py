@@ -1,9 +1,15 @@
 """CLI argument parsing and dispatch for the PyTorch/CUDA port.
 
-Counterpart of ``raft_meets_dicl_tpu/main.py``; only ``serve`` is ported.
+Counterpart of ``raft_meets_dicl_tpu/main.py``; ``train`` and ``serve``
+are ported.
 
+    python -m raft_meets_dicl_tpu_torch.main train -d strategy.yaml \
+        -m model.yaml -o runs [--limit-steps N] [--device cpu]
     python -m raft_meets_dicl_tpu_torch.main serve -c serve.yaml
     python -m raft_meets_dicl_tpu_torch.main serve -c serve.yaml --device cpu
+
+Both run on ``cuda`` unless ``--device cpu`` is given, and fail without
+CUDA rather than falling back to the CPU.
 
 ``serve.yaml`` holds a ``serve:`` section with ``model``, ``buckets`` and
 optionally ``batch-size``, ``max-wait-ms``, ``queue-limit``, ``requests``
@@ -25,6 +31,27 @@ def build_parser():
         description="Optical Flow Estimation (PyTorch/CUDA port)",
         formatter_class=fmtcls)
     subp = parser.add_subparsers(dest="command", help="help for command")
+
+    train = subp.add_parser("train", aliases=["t"], formatter_class=fmtcls,
+                            help="train model")
+    train.add_argument("-d", "--data", help="training strategy and data")
+    train.add_argument("-m", "--model", help="specification of the model")
+    train.add_argument("-s", "--seeds", help="seed config for initializing RNGs")
+    train.add_argument("-o", "--output", default="runs",
+                       help="base output directory [default: %(default)s]")
+    train.add_argument("--device", default="cuda",
+                       help="torch device: cuda, cuda:N or cpu "
+                            "[default: cuda; fails without CUDA]")
+    train.add_argument("--start-stage", type=int,
+                       help="start with specified stage and skip previous")
+    train.add_argument("--reproduce", action="store_true",
+                       help="use seeds from config")
+    train.add_argument("--suffix", "--sfx", dest="suffix",
+                       help="suffix for output directory")
+    train.add_argument("--comment", dest="comment",
+                       help="comment to add to config file")
+    train.add_argument("--limit-steps", type=int, dest="steps",
+                       help="limit to a fixed number of steps")
 
     serve = subp.add_parser("serve", formatter_class=fmtcls,
                             help="serve flow inference (continuous "
@@ -66,7 +93,8 @@ def main(argv=None):
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
-    return {"serve": cmd.serve}[args.command](args)
+    command = {"t": "train"}.get(args.command, args.command)
+    return {"train": cmd.train, "serve": cmd.serve}[command](args)
 
 
 if __name__ == "__main__":

@@ -2,11 +2,11 @@
 
 from . import common, config, input, model
 from .config import ModelSpec, load, load_input, load_loss, load_model
-from .input import InputSpec
+from .input import Input, InputSpec
 from .model import Loss, Model, ModelAdapter, Result
 
 __all__ = [
     "common", "config", "input", "model",
     "ModelSpec", "load", "load_input", "load_loss", "load_model",
-    "InputSpec", "Loss", "Model", "ModelAdapter", "Result",
+    "Input", "InputSpec", "Loss", "Model", "ModelAdapter", "Result",
 ]

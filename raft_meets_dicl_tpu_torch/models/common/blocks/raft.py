@@ -3,7 +3,9 @@
 NCHW inside; parameter names follow torch RAFT (``conv1``, ``norm1``,
 ``downsample.0`` / ``.1``), which ``scripts/chkpt_convert.py`` maps onto
 the JAX variable tree. The strided 3x3 conv pads (1, 1) like the JAX
-block's explicit symmetric padding.
+block's explicit symmetric padding. ``train``/``frozen_bn`` reach the norms
+as in the JAX block: batch statistics only when training with live batch
+norm.
 """
 
 import torch.nn as nn
@@ -36,11 +38,13 @@ class ResidualBlock(nn.Module):
                 make_norm2d(norm_type, out_planes, groups, dtype),
             )
 
-    def forward(self, x):
-        y = F.relu(self.norm1(self.conv1(x)))
-        y = F.relu(self.norm2(self.conv2(y)))
+    def forward(self, x, train=False, frozen_bn=False):
+        norm_train = train and not frozen_bn
+        y = F.relu(self.norm1(self.conv1(x), norm_train))
+        y = F.relu(self.norm2(self.conv2(y), norm_train))
 
         if self.downsample is not None:
-            x = self.downsample(x)
+            conv, norm = self.downsample
+            x = norm(conv(x), norm_train)
 
         return F.relu(x + y)

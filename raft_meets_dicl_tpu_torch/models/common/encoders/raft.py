@@ -4,7 +4,9 @@ Single-scale s3 (1/8 resolution): 7x7 stride-2 input conv, three residual
 stages (64/96/128), 1x1 output conv. NCHW inside; parameter names follow
 torch RAFT (``conv1``, ``norm1``, ``layer1.0...``, ``conv2``). The shared
 batch for image pairs is kept: pass ``(img1, img2)`` and both are encoded
-in one batched pass. Inference only, so dropout never applies.
+in one batched pass. Channel dropout (the JAX ``_drop2d``, torch
+``Dropout2d``) applies only when ``train``; ``frozen_bn`` keeps batch norm
+on its running statistics while its scale and bias still train.
 """
 
 import torch
@@ -40,15 +42,18 @@ class FeatureEncoderS3(nn.Module):
 
         self.conv2 = Conv2d(128, output_dim, 1, dtype=dtype, init="kaiming")
 
-    def forward(self, x):
+    def forward(self, x, train=False, frozen_bn=False):
         paired = isinstance(x, (tuple, list))
         if paired:
             n = x[0].shape[0]
             x = torch.cat(x, dim=0)
 
-        x = F.relu(self.norm1(self.conv1(x)))
-        x = self.layer3(self.layer2(self.layer1(x)))
+        x = F.relu(self.norm1(self.conv1(x), train and not frozen_bn))
+        for block in (*self.layer1, *self.layer2, *self.layer3):
+            x = block(x, train, frozen_bn)
         x = self.conv2(x)
+        if self.dropout > 0:
+            x = F.dropout2d(x, self.dropout, training=train)
 
         if paired:
             return x[:n], x[n:]

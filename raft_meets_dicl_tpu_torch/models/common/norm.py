@@ -2,13 +2,16 @@
 ``common/norm.py``).
 
 Hyperparameters follow the JAX modules: eps 1e-5; instance norm is
-non-affine (flax ``GroupNorm(group_size=1)`` without scale/bias); batch
-norm evaluates with its running statistics (flax ``batch_stats.mean/var``;
-flax momentum 0.9 is torch momentum 0.1). Statistics and the normalization
-itself run in float32 and the result is cast to the compute dtype, as the
-flax norm layers do under ``dtype=bf16``.
+non-affine (flax ``GroupNorm(group_size=1)`` without scale/bias). Statistics
+and the normalization itself run in float32 and the result is cast to the
+compute dtype, as the flax norm layers do under ``dtype=bf16``.
 
-Only inference is ported: batch norm always uses its running statistics.
+Every norm takes ``(x, train=False)``, like the JAX ``Norm2d``; only batch
+norm reads ``train``. Without it batch norm normalizes with its running
+statistics (flax ``batch_stats.mean/var``). With it, it normalizes with
+the batch statistics and updates the running ones as flax does: momentum
+0.9 in flax terms (0.1 in torch terms) and the *biased* batch variance,
+where ``F.batch_norm(training=True)`` would store the unbiased one.
 """
 
 import torch
@@ -23,14 +26,40 @@ def _out_dtype(x, dtype):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    def __init__(self, num_channels, dtype=None):
+    """Batch norm with the flax running-statistics update.
+
+    ``splits`` > 1 computes live statistics over that many equal chunks of
+    the batch, one after the other (the second chunk's update reads the
+    first's), as the JAX ``Norm2d(splits=...)`` does for encoders that fold
+    an image pair into one batch.
+    """
+
+    def __init__(self, num_channels, dtype=None, splits=1):
         super().__init__(num_channels, eps=1e-5, momentum=0.1)
         self.compute_dtype = dtype
+        self.splits = splits
 
-    def forward(self, x):
-        y = F.batch_norm(x.float(), self.running_mean, self.running_var,
-                         self.weight, self.bias, False, 0.0, self.eps)
+    def forward(self, x, train=False):
+        xf = x.float()
+        if not train:
+            y = F.batch_norm(xf, self.running_mean, self.running_var,
+                             self.weight, self.bias, False, 0.0, self.eps)
+        elif self.splits > 1:
+            y = torch.cat([self._batch_stats_norm(c)
+                           for c in xf.chunk(self.splits)], dim=0)
+        else:
+            y = self._batch_stats_norm(xf)
         return y.to(_out_dtype(x, self.compute_dtype))
+
+    def _batch_stats_norm(self, x):
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                         self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return y
 
 
 class GroupNorm(nn.GroupNorm):
@@ -38,7 +67,7 @@ class GroupNorm(nn.GroupNorm):
         super().__init__(num_groups, num_channels, eps=1e-5)
         self.compute_dtype = dtype
 
-    def forward(self, x):
+    def forward(self, x, train=False):
         y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias,
                          self.eps)
         return y.to(_out_dtype(x, self.compute_dtype))
@@ -51,14 +80,20 @@ class InstanceNorm2d(nn.Module):
         super().__init__()
         self.compute_dtype = dtype
 
-    def forward(self, x):
+    def forward(self, x, train=False):
         y = F.instance_norm(x.float(), eps=1e-5)
         return y.to(_out_dtype(x, self.compute_dtype))
 
 
+class NoNorm2d(nn.Module):
+    """Identity (norm type ``none``); no parameters or buffers."""
+
+    def forward(self, x, train=False):
+        return x
+
+
 def make_norm2d(ty, num_channels, num_groups=8, dtype=None):
-    """Factory matching the reference signature; ``none`` is an empty
-    ``nn.Sequential`` (identity, no state) like torch RAFT."""
+    """Factory matching the reference signature."""
     if ty == "group":
         return GroupNorm(num_groups, num_channels, dtype=dtype)
     if ty == "batch":
@@ -66,5 +101,5 @@ def make_norm2d(ty, num_channels, num_groups=8, dtype=None):
     if ty == "instance":
         return InstanceNorm2d(dtype=dtype)
     if ty == "none":
-        return nn.Sequential()
+        return NoNorm2d()
     raise ValueError(f"unknown norm type '{ty}'")

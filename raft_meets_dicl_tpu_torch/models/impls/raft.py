@@ -1,4 +1,4 @@
-"""RAFT baseline (``raft/baseline``), PyTorch port, inference.
+"""RAFT baseline (``raft/baseline``), PyTorch port: forward and training.
 
 Counterpart of ``raft_meets_dicl_tpu/models/impls/raft.py``. The public
 layout is the JAX one: images (B, H, W, 3), flows (B, H, W, 2) with
@@ -9,7 +9,11 @@ RAFT (``fnet``, ``cnet``, ``update_block.encoder.convc1``, ``...gru.convz1``,
 
 The GRU iterations are a Python loop. As in the JAX module, the convex 8x
 upsampling runs once per forward, batched over all iterations, so its
-kernel launches once per forward.
+kernels launch once per forward and once per backward. Every iteration
+starts from the carried flow with its gradient stopped (JAX
+``_RaftStep``: ``jax.lax.stop_gradient(flow)``); ``corr_grad_stop`` also
+stops the gradient into the lookup. There is no activation checkpointing:
+the JAX remat policy is a fit to the TPU's memory, not numerics.
 
 Mixed precision (``mixed-precision: true``) follows the JAX policy: the
 encoders, the correlation volume and the update block compute in bf16;
@@ -197,7 +201,7 @@ class BasicUpdateBlock(nn.Module):
 
 
 class RaftModule(nn.Module):
-    """RAFT flow estimation network, forward only."""
+    """RAFT flow estimation network."""
 
     def __init__(self, dropout=0.0, mixed_precision=False, corr_levels=4,
                  corr_radius=4, corr_channels=256, context_channels=128,
@@ -229,23 +233,26 @@ class RaftModule(nn.Module):
     def reset_parameters(self, generator):
         init_parameters(self, generator)
 
-    def forward(self, img1, img2, iterations=12, upnet=True, corr_flow=False,
-                corr_grad_stop=False, mask_costs=()):
+    def forward(self, img1, img2, train=False, frozen_bn=False, iterations=12,
+                upnet=True, corr_flow=False, corr_grad_stop=False,
+                mask_costs=()):
         """img1, img2: (B, H, W, 3). Returns the list of per-iteration
         (B, H, W, 2) flows; with ``corr_flow`` also the per-level
-        soft-argmax flows, coarse to fine, before it. ``corr_grad_stop``
-        only shapes gradients and has no effect on inference."""
+        soft-argmax flows, coarse to fine, before it. ``train`` turns on
+        dropout and batch-norm batch statistics, ``frozen_bn`` keeps batch
+        norm on its running statistics while training;
+        ``corr_grad_stop`` stops the gradient into the lookup."""
         hdim = self.hidden_dim
         dt = self.compute_dtype
         x1, x2 = _nchw(img1), _nchw(img2)
 
-        fmap1, fmap2 = self.fnet((x1, x2))
+        fmap1, fmap2 = self.fnet((x1, x2), train, frozen_bn)
         if dt is None:
             fmap1, fmap2 = fmap1.float(), fmap2.float()
         pyramid = correlation_pyramid_direct(
             _nhwc(fmap1), _nhwc(fmap2), self.corr_levels, dtype=dt)
 
-        ctx = self.cnet(x1)
+        ctx = self.cnet(x1, train, frozen_bn)
         h = torch.tanh(ctx[:, :hdim])
         x = F.relu(ctx[:, hdim:])
 
@@ -256,11 +263,14 @@ class RaftModule(nn.Module):
 
         flows, hiddens, corr_flows = [], [], []
         for _ in range(iterations):
+            flow = flow.detach()
             coords1 = coords0 + flow
             corr = lookup_pyramid_levels(pyramid, coords1, self.corr_radius,
                                          mask_costs)
             if corr_flow:
                 corr_flows.append([flow + d for d in self.corr_reg(corr)])
+            if corr_grad_stop:
+                corr = [c.detach() for c in corr]
 
             h, d = self.update_block(h, x, _nchw(flatten_levels(corr)),
                                      _nchw(flow))

@@ -1,16 +1,26 @@
-"""Model input contract: range scaling, modulo padding, shape buckets.
+"""Model input contract and the training loader.
 
-Counterpart of ``raft_meets_dicl_tpu/models/input.py`` lines 20-428, kept
-as host-side numpy (NHWC float32 images): padding, the canonical serving
-shape buckets, and the ``InputSpec`` clip/range/padding contract. The
-dataset loader (``Input``, its adapter and ``collate``) belongs to the
-data path, which a later slice ports (ROADMAP queue A).
+Counterpart of ``raft_meets_dicl_tpu/models/input.py``. Host-side numpy
+(NHWC float32 images): padding, the canonical serving shape buckets, the
+``InputSpec`` clip/range/padding contract, and the data path's ``Input``
+(clip + range + padding over a collection), its adapter (validation,
+NHWC float32) and the batching ``Loader``, built on ``torch.utils.data``:
+the epoch order and within-batch shuffle come from the loader's own numpy
+generator, exactly as in the JAX ``Loader``, and a ``DataLoader`` decodes
+the batches in worker processes and hands them over as CPU tensors
+(pinned when asked, for a ``non_blocking`` copy to the card).
 """
 
 import copy
+import logging
 from dataclasses import replace
 
 import numpy as np
+import torch
+import torch.utils.data
+
+# clip bound for non-finite flow values (the JAX ``FLOW_INF``)
+FLOW_INF = 1e10
 
 
 # numpy pad modes shared by every padding flavor; the aliases map the
@@ -377,9 +387,204 @@ class InputSpec:
         self.range = range
         self.padding = padding
 
+    def apply(self, source):
+        """Wrap a collection in this input contract (the JAX
+        ``InputSpec.apply`` with host-side normalization and no buckets)."""
+        return Input(source, self.clip, self.range, self.padding)
+
     def get_config(self):
         return {
             "clip": self.clip,
             "range": self.range,
             "padding": self.padding.get_config() if self.padding is not None else None,
         }
+
+
+class Input:
+    """Applies clip + range scaling + padding over a Collection."""
+
+    def __init__(self, source, clip=(0.0, 1.0), range=(-1.0, 1.0),
+                 padding=None):
+        self.source = source
+        self.clip = clip
+        self.range = range
+        self.padding = padding
+
+    def __getitem__(self, index):
+        img1, img2, flow, valid, meta = self.source[index]
+
+        lo, hi = self.clip
+        rmin, rmax = self.range
+        img1 = (rmax - rmin) * np.clip(img1, lo, hi) + rmin
+        img2 = (rmax - rmin) * np.clip(img2, lo, hi) + rmin
+
+        if self.padding is not None:
+            img1, img2, flow, valid, meta = self.padding(img1, img2, flow, valid, meta)
+
+        return img1, img2, flow, valid, meta
+
+    def __len__(self):
+        return len(self.source)
+
+    def torch(self):
+        return TorchAdapter(self)
+
+
+class TorchAdapter:
+    """Validates samples and normalizes them to NHWC float32 numpy (the JAX
+    ``JaxAdapter``). Non-finite images or flow, or empty valid masks, mark
+    the whole sample batch invalid via ``meta.valid``; the trainer skips
+    those batches with a warning."""
+
+    def __init__(self, source):
+        self.source = source
+        self.log = logging.getLogger("data:torch-adapter")
+
+    def __getitem__(self, index):
+        img1, img2, flow, valid, meta = self.source[index]
+        self._validate_images(img1, img2, meta)
+
+        img1 = np.ascontiguousarray(img1, dtype=np.float32)
+        img2 = np.ascontiguousarray(img2, dtype=np.float32)
+
+        assert flow is not None and valid is not None
+        self._validate_flow(flow, valid, meta)
+
+        flow = np.nan_to_num(flow, nan=0.0, posinf=FLOW_INF, neginf=-FLOW_INF)
+        flow = np.clip(flow, -FLOW_INF, FLOW_INF)
+
+        flow = np.ascontiguousarray(flow, dtype=np.float32)
+        valid = np.ascontiguousarray(valid, dtype=bool)
+
+        return img1, img2, flow, valid, meta
+
+    def _mark_invalid(self, meta, which, bad_mask):
+        for i, bad in enumerate(bad_mask):
+            if bad:
+                self.log.warning(f"{which}: {meta[i].sample_id}")
+        for m in meta:
+            m.valid = False
+
+    def _validate_images(self, img1, img2, meta):
+        bad1 = ~np.all(np.isfinite(img1), axis=(1, 2, 3))
+        if bad1.any():
+            self._mark_invalid(meta, "non-finite values in img1 detected", bad1)
+
+        bad2 = ~np.all(np.isfinite(img2), axis=(1, 2, 3))
+        if bad2.any():
+            self._mark_invalid(meta, "non-finite values in img2 detected", bad2)
+
+    def _validate_flow(self, flow, valid, meta):
+        no_valid = ~np.any(valid, axis=(1, 2))
+        if no_valid.any():
+            self._mark_invalid(meta, "sample contains no valid flow pixels", no_valid)
+
+        nonfinite = np.array(
+            [not np.all(np.isfinite(flow[b][valid[b]])) for b in range(flow.shape[0])]
+        )
+        if nonfinite.any():
+            self._mark_invalid(meta, "non-finite values in flow detected", nonfinite)
+
+    def __len__(self):
+        return len(self.source)
+
+    def loader(self, batch_size=1, shuffle=False, num_workers=4,
+               drop_last=False, seed=None, pin_memory=False):
+        # no **kwargs catch-all: unknown loader arguments (typos in stage
+        # configs) must fail loudly instead of being silently dropped
+        return Loader(self, batch_size, shuffle, num_workers, drop_last,
+                      seed, pin_memory)
+
+
+def collate(samples, shuffle=False, rng=None):
+    """Concatenate pre-batched samples into one global batch (numpy),
+    optionally shuffled within the batch (the JAX ``collate``)."""
+    base = samples[0][0].shape[1:]
+    for s in samples[1:]:
+        if s[0].shape[1:] != base:
+            raise ValueError(
+                "cannot batch samples of mixed shapes: "
+                f"{base[0]}x{base[1]} vs {s[0].shape[1]}x{s[0].shape[2]}; "
+                "use batch size 1 for mixed-resolution datasets")
+
+    img1 = np.concatenate([s[0] for s in samples], axis=0)
+    img2 = np.concatenate([s[1] for s in samples], axis=0)
+
+    flow = np.concatenate([s[2] for s in samples], axis=0)
+    valid = np.concatenate([s[3] for s in samples], axis=0)
+
+    meta = [m for s in samples for m in s[4]]
+
+    if shuffle and img1.shape[0] > 1:
+        rng = rng if rng is not None else np.random
+        perm = rng.permutation(img1.shape[0])
+        img1, img2 = img1[perm], img2[perm]
+        flow, valid = flow[perm], valid[perm]
+        meta = [meta[i] for i in perm]
+
+    return img1, img2, flow, valid, meta
+
+
+def _collate_tensors(samples):
+    """``DataLoader`` collate: samples arrive already in batch order."""
+    img1, img2, flow, valid, meta = collate(samples)
+    return (torch.from_numpy(img1), torch.from_numpy(img2),
+            torch.from_numpy(flow), torch.from_numpy(valid), meta)
+
+
+class Loader:
+    """Batching iterator over an adapter on ``torch.utils.data``.
+
+    The epoch order reshuffles on every ``__iter__`` when ``shuffle`` is
+    set, and each batch is shuffled within itself, both drawn from the
+    loader's own numpy generator in the JAX ``Loader``'s order (epoch
+    permutation, then one permutation per batch), so the same seed gives
+    the same batches as the JAX package. Without an explicit ``seed`` the
+    generator is seeded from the global numpy RNG, so run-level seeding
+    (``utils.seeds``) still makes data order reproducible. Every ported
+    source yields one sample per index, so permuting a batch's indices is
+    permuting its samples.
+
+    Batches are ``(img1, img2, flow, valid, meta)`` with NHWC float32 CPU
+    tensors (``valid`` bool), decoded by ``num_workers`` worker processes
+    (0 decodes in the caller), pinned when ``pin_memory`` is set.
+    """
+
+    def __init__(self, source, batch_size=1, shuffle=False, num_workers=4,
+                 drop_last=False, seed=None, pin_memory=False):
+        self.source = source
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.num_workers = num_workers
+        self.drop_last = drop_last
+        self.pin_memory = pin_memory
+        if seed is None:
+            seed = int(np.random.randint(0, 2**31 - 1))
+        self.rng = np.random.default_rng(seed)
+
+    def __len__(self):
+        n = len(self.source)
+        if self.drop_last:
+            return n // self.batch_size
+        return -(-n // self.batch_size)
+
+    def _batches(self):
+        n = len(self.source)
+        order = self.rng.permutation(n) if self.shuffle else np.arange(n)
+
+        batches = []
+        for start in range(0, n, self.batch_size):
+            chunk = order[start: start + self.batch_size]
+            if self.drop_last and len(chunk) < self.batch_size:
+                break
+            if self.shuffle and len(chunk) > 1:
+                chunk = chunk[self.rng.permutation(len(chunk))]
+            batches.append([int(i) for i in chunk])
+        return batches
+
+    def __iter__(self):
+        loader = torch.utils.data.DataLoader(
+            self.source, batch_sampler=self._batches(),
+            num_workers=self.num_workers, collate_fn=_collate_tensors,
+            pin_memory=self.pin_memory)
+        yield from loader

@@ -31,8 +31,11 @@ class Result:
 
 
 class ModelAdapter:
-    """Decouples the evaluator from model-specific output shapes. (The
-    stage/epoch lifecycle relays of the JAX adapter come with training.)"""
+    """Decouples the trainer/evaluator from model-specific output shapes.
+
+    Also relays stage/epoch lifecycle events to the model with config-bound
+    default arguments merged in.
+    """
 
     def __init__(self, model):
         self.model = model
@@ -40,13 +43,20 @@ class ModelAdapter:
     def wrap_result(self, result, original_shape) -> Result:
         raise NotImplementedError
 
+    def on_stage(self, stage, **kwargs):
+        self.model.on_stage(stage, **(self.model.on_stage_arguments | kwargs))
+
+    def on_epoch(self, stage, epoch, **kwargs):
+        self.model.on_epoch(stage, epoch,
+                            **(self.model.on_epoch_arguments | kwargs))
+
 
 class Model:
     """Config-constructible wrapper that owns an ``nn.Module``.
 
     Holds the module, default forward arguments (merged with per-call
     overrides in ``apply``), and the lifecycle-event argument sets of the
-    config (kept for ``get_config``; the hooks come with training).
+    config (relayed to ``on_stage``/``on_epoch`` by the adapter).
     """
 
     type = None
@@ -61,6 +71,7 @@ class Model:
         self.arguments = dict(arguments)
         self.on_epoch_arguments = dict(on_epoch_arguments)
         self.on_stage_arguments = dict(on_stage_arguments)
+        self.frozen_batchnorm = False
 
     def get_config(self):
         raise NotImplementedError
@@ -80,13 +91,25 @@ class Model:
 
     def apply(self, img1, img2, train=False, **kwargs):
         """Run the forward pass with the config-default arguments merged
-        under ``kwargs`` (JAX ``Model.apply`` contract). Only inference is
-        ported: ``train=True`` raises until the training slice lands."""
-        if train:
-            raise NotImplementedError(
-                "training is not ported yet (ROADMAP queue A, training slice)")
+        under ``kwargs`` (JAX ``Model.apply`` contract).
+
+        ``train`` drives dropout and batch-norm batch statistics; the
+        stage's ``freeze_batchnorm`` (``on_stage``) keeps batch norm on its
+        running statistics. Either way the raw output is returned: where
+        the JAX wrapper hands back the updated ``batch_stats``, here they
+        live in the module's buffers, updated in place.
+        """
         args = self.arguments | kwargs
-        return self.module(img1, img2, **args)
+        return self.module(img1, img2, train=train,
+                           frozen_bn=self.frozen_batchnorm, **args)
+
+    def on_stage(self, stage, **kwargs):
+        """Default stage hook: ``freeze_batchnorm`` as an apply-time switch
+        (the JAX ``Model.on_stage``)."""
+        self.frozen_batchnorm = bool(kwargs.get("freeze_batchnorm", False))
+
+    def on_epoch(self, stage, epoch, **kwargs):
+        pass
 
     def __call__(self, img1, img2, train=False, **kwargs):
         return self.apply(img1, img2, train=train, **kwargs)

@@ -1,0 +1,27 @@
+"""Strategy/stage config loading with file-relative resolution
+(counterpart of ``raft_meets_dicl_tpu/strategy/config.py``)."""
+
+from pathlib import Path
+
+from ..utils import config
+from . import spec
+
+
+def load_stage(path, cfg=None):
+    path = Path(path)
+
+    if cfg is None:
+        return spec.Stage.from_config(path.parent, config.load(path))
+    if not isinstance(cfg, dict):
+        return spec.Stage.from_config((path / cfg).parent, config.load(path / cfg))
+    return spec.Stage.from_config(path, cfg)
+
+
+def load(path, cfg=None):
+    path = Path(path)
+
+    if cfg is None:
+        return spec.Strategy.from_config(path.parent, config.load(path))
+    if not isinstance(cfg, dict):
+        return spec.Strategy.from_config((path / cfg).parent, config.load(path / cfg))
+    return spec.Strategy.from_config(path, cfg)

@@ -1,5 +1,5 @@
 """Utility modules."""
 
-from . import config
+from . import config, expr, seeds
 
-__all__ = ["config"]
+__all__ = ["config", "expr", "seeds"]

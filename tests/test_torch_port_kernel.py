@@ -2,10 +2,12 @@
 module) held against the JAX package's Pallas kernel and its XLA
 reference, on the CPU.
 
-The CUDA kernel itself only runs on the card (``chip_smoke.py`` holds it
-against ``convex_combine_8x_reference`` there); here the plain version is
-checked against both JAX forms, and the wrapper's CPU dispatch, counter
-and build failure are pinned.
+The CUDA kernels themselves only run on the card (``chip_smoke.py`` holds
+them against ``convex_combine_8x_reference`` there); here the plain version
+is checked against both JAX forms, and the wrapper's CPU dispatch, counter,
+build failure and refusal of CPU tensors on the kernel route are pinned.
+The backward's plain version is held against JAX in
+``test_torch_port_train.py``.
 """
 
 import jax.numpy as jnp
@@ -86,6 +88,18 @@ def test_kernel_library_without_nvcc_raises(tmp_path, monkeypatch):
 
 
 def test_backward_is_not_ported_yet():
-    ctx = None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        convex._ConvexCombine8x.backward(ctx, torch.zeros(1, 128))
+    """The autograd pair's backward runs the CUDA kernel and nothing else:
+    handed CPU tensors it raises instead of computing the plain version
+    (on the CPU, autograd of the plain version is the backward)."""
+    logits, win = _inputs(4, "float32")
+
+    class Ctx:
+        saved_tensors = (torch.from_numpy(logits), torch.from_numpy(win))
+        inv_temp = 0.25
+
+    before = (convex.launches, convex.bwd_launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        convex._ConvexCombine8x.backward(Ctx, torch.zeros(M, 128))
+    with pytest.raises(ValueError, match="CUDA"):
+        convex._launch(*Ctx.saved_tensors, 0.25)
+    assert (convex.launches, convex.bwd_launches) == before

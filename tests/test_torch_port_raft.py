@@ -93,10 +93,33 @@ def test_raft_bf16_policy_matches_jax_every_iteration(images):
 
 
 def test_raft_forward_only():
+    """An inference forward reads batch norm's running statistics and
+    writes nothing; a training forward with live batch norm updates them,
+    and ``freeze_batchnorm`` keeps them as they were. Either way ``apply``
+    returns the raw per-iteration flows."""
     tspec = tmodels.load(_cfg(False))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tspec.model.apply(torch.zeros(1, 64, 96, 3), torch.zeros(1, 64, 96, 3),
-                          train=True)
+    tspec.model.init(device="cpu")
+    module = tspec.model.module
+    x1, x2 = (torch.from_numpy(x) for x in (
+        np.random.RandomState(2).uniform(-1, 1, (2, 2, 64, 96, 3))
+        .astype(np.float32)))
+    stats = {k: v.clone() for k, v in module.state_dict().items()
+             if "running" in k}
+
+    def unchanged():
+        return all(torch.equal(module.state_dict()[k], v)
+                   for k, v in stats.items())
+
+    with torch.no_grad():
+        out = tspec.model.apply(x1, x2)
+        assert len(out) == ITERATIONS and unchanged()
+        tspec.model.on_stage(None, freeze_batchnorm=True)
+        out = tspec.model.apply(x1, x2, train=True)
+        assert len(out) == ITERATIONS and unchanged()
+        tspec.model.on_stage(None, freeze_batchnorm=False)
+        out = tspec.model.apply(x1, x2, train=True)
+    assert len(out) == ITERATIONS and tuple(out[-1].shape) == (2, 64, 96, 2)
+    assert not unchanged()
 
 
 def test_sequence_loss_matches_jax():
