@@ -7,12 +7,14 @@ Drives ``raft_meets_dicl_tpu_torch`` — never JAX or the JAX package — on
 the card and fails (non-zero exit, no result line) on any fault:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
-2. build: every CUDA kernel of the path (``convex_combine_8x`` forward and
-   backward, one source), compiled with ``nvcc`` for ``sm_90a`` from
+2. build: every CUDA kernel of the paths (``convex_combine_8x`` and
+   ``sample_window``, forward and backward, one source each), compiled
+   with one ``nvcc`` per source, all started together, for ``sm_90a`` from
    ``raft_meets_dicl_tpu_torch/csrc``; ptxas registers and spills printed;
 3. kernels: the forward against its plain PyTorch version on the card, at
-   the main paths' shapes, with TF32 off (max |diff| <= 1e-5), and timed
-   (CUDA events) beside its plain version and its bound;
+   the main paths' shapes (raft/baseline's and ctf-l3's rows, both logits
+   dtypes), with TF32 off (max |diff| <= 1e-5), and timed (CUDA events)
+   beside its plain version and its bound;
 4. model: ``raft/baseline`` in float32 at 1x368x496, 12 iterations, one
    seeded init, on the card against the same weights on the CPU, TF32 off;
    the kernel must launch exactly once per forward;
@@ -22,8 +24,9 @@ the card and fails (non-zero exit, no result line) on any fault:
    errors or sheds, every flow finite, and the kernel launched once per
    dispatched batch (warm-up included);
 6. kernels, backward: the backward kernel against autograd of the plain
-   version on the card, TF32 off, both logits dtypes, at M = 700, 34,224
-   and 324,000 (the training shape): float32 outputs within 1e-5, bf16
+   version on the card, TF32 off, both logits dtypes, at M = 700, 34,224,
+   324,000 (raft/baseline training) and 92,160 (ctf-l3 training): float32
+   outputs within 1e-5, bf16
    ``dlogits`` within one bf16 ulp of the plain result rounded to bf16
    (float32-level agreement plus one rounding:
    |diff| <= 1e-5 + one bf16 ulp); timed beside the plain backward and
@@ -42,10 +45,34 @@ the card and fails (non-zero exit, no result line) on any fault:
    optimizer, one-cycle schedule and clip, batch 6, 12 steps: every loss
    finite, each kernel launched once per step; median step ms, pairs/s
    (at the median step and over the whole window) and peak device memory
-   printed.
+   printed;
+9. sampler kernels: ``sample_window`` forward and backward
+   (``csrc/sample_window.cu``) against the plain version and its autograd
+   on the card, TF32 off, at the ctf-l3 paths' shapes (training levels
+   3-5 at b10 384x512, level 3 also bf16; the 448x1024 serve bucket's
+   level 3; two ragged tiny cases with far out-of-bounds centres, whose
+   windows must be exact zeros), each timed beside the plain version, its
+   bound and ``F.grid_sample`` (checked against the plain version first);
+10. ctf model: ``raft+dicl/ctf-l3`` in float32, full width, iterations
+   (4, 3, 3), at 1x384x512, card vs CPU from one seeded init, TF32 off;
+   the sampler launches exactly 10 times per forward, the combine once;
+11. ctf serve: ``main serve`` with the shipped ctf-l3 config (f32),
+   buckets 384x512 and 448x1024, batch 4, 16 requests;
+12. ctf train step: one float32 step of full-width ctf-l3 at 2x128x192
+   with live batch norm and s0-chairs' AdamW (at eps 1e-3) and clip, card
+   vs CPU, bounds below; each sampler kernel launches 10 times, each
+   combine kernel once; the same step with TF32 must break each bound;
+13. ctf train: ``main train`` with the shipped ctf-l3 config and the
+   s0-chairs stage settings (live batch norm, AdamW, one-cycle, clip),
+   batch 10 at 384x512, 8 steps: every loss finite, 10 + 10 sampler and
+   1 + 1 combine launches per step; median step ms, pairs/s, peak memory
+   and whether cuDNN TF32 was on printed.
 
-Each phase prints one JSON line; then the ``kernels`` line, the card's
-``nvidia-smi`` name/power-limit line, and last
+Each phase prints one JSON line (and a ``timing`` line); every phase runs
+even after another failed, and a failure ends the run with exit code 1
+and no result line. Then the ``kernels`` line (the four kernels, each with
+``launches`` from the ctf-l3 ``main train`` run and ``launches_by_path``),
+the card's ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 """
 
@@ -55,6 +82,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from pathlib import Path
 
 import numpy as np
@@ -72,13 +100,18 @@ PEAK_F32_OPS_S = 67e12
 # (36 ops), 1 reciprocal and 2 multiplies
 CONVEX_OPS_PER_SUBPIXEL = 9 * 5 + 36 + 3
 
-# rows of the convex combine: iterations * batch * (H/8) * (W/8)
+# rows of the convex combine: iterations * batch * (H/8) * (W/8); raft/
+# baseline runs 12 iterations, ctf-l3 combines its finest level's 3
 ENTRY_M = 12 * 1 * (368 // 8) * (496 // 8)         # 34,224
 SERVE_SMALL_M = 12 * 4 * (368 // 8) * (496 // 8)   # 136,896
 SERVE_M = 12 * 4 * (448 // 8) * (1024 // 8)        # 344,064
 TRAIN_M = 12 * 6 * (400 // 8) * (720 // 8)         # 324,000
-KERNEL_ROWS = (700, ENTRY_M, SERVE_SMALL_M, SERVE_M, TRAIN_M)
-BWD_ROWS = (700, ENTRY_M, TRAIN_M)
+CTF_SERVE_SMALL_M = 3 * 4 * (384 // 8) * (512 // 8)   # 36,864
+CTF_SERVE_M = 3 * 4 * (448 // 8) * (1024 // 8)        # 86,016
+CTF_TRAIN_M = 3 * 10 * (384 // 8) * (512 // 8)        # 92,160
+KERNEL_ROWS = (700, ENTRY_M, SERVE_SMALL_M, SERVE_M, TRAIN_M,
+               CTF_SERVE_SMALL_M, CTF_SERVE_M, CTF_TRAIN_M)
+BWD_ROWS = (700, ENTRY_M, TRAIN_M, CTF_TRAIN_M)
 
 # float32 operations per sub-pixel of the backward: the forward's softmax
 # (9 scale multiplies, max, subtract, exp, sum; 1 reciprocal), 9 p
@@ -117,8 +150,80 @@ STEP_EPS = 1e-3
 # H100 runs read 1.1e-4 and 1.2e-7 (see PERF.md).
 STEP_UPDATE_REL_L2 = 1e-3
 STEP_PARAM_MAX_ABS = 1e-6
+# the median over gradient tensors of their relative L2: the worst tensor
+# alone can hide a shift of them all. H100 runs read 1.6e-5 (TF32 5.8e-3).
+STEP_MEDIAN_GRAD_REL_L2 = 1e-4
 # the bounds the same step with TF32 convolutions and matmuls must break
-STEP_TF32_BREAKS = ("loss", "gradient", "update", "params")
+STEP_TF32_BREAKS = ("loss", "gradient", "median gradient", "update", "params")
+RAFT_STEP_BOUNDS = {"loss": STEP_LOSS_REL, "gradient": STEP_GRAD_REL_L2,
+                    "median gradient": STEP_MEDIAN_GRAD_REL_L2,
+                    "update": STEP_UPDATE_REL_L2, "params": STEP_PARAM_MAX_ABS}
+
+# every kernel source, built by one nvcc each
+KERNEL_SOURCES = ("convex_combine_8x", "sample_window")
+
+# -- raft+dicl/ctf-l3: the shipped config (f32, radius 4, 32 corr channels),
+# the default iterations per level, coarse to fine
+CTF_CFG = ROOT / "cfg" / "model" / "raft+dicl-ctf3l.yaml"
+CTF_RADIUS = 4
+CTF_LEVEL_ITERATIONS = (4, 3, 3)
+CTF_ITERATIONS = sum(CTF_LEVEL_ITERATIONS)   # sampler launches per forward
+CTF_MODEL_SHAPE = (384, 512)
+CTF_BUCKETS = "384x512,448x1024"
+# final flow, card vs CPU in float32, relative to the flow's largest |value|:
+# 9x the 2.2e-6 (4.6e-4 px on 210 px) an H100 run read (see PERF.md)
+CTF_MODEL_REL = 2e-5
+CTF_STEP_SHAPE = (2, 128, 192)
+CTF_LR = 4e-4                 # s0-chairs' lr (and one-cycle max_lr)
+# The ctf-l3 step, card vs CPU in float32, live batch norm. An H100 run
+# reads loss 1.3e-6, median gradient 1.9e-4, update 1.2e-2, params 7.0e-5
+# and a worst gradient of 4.3e-2 (TF32: 1.6e-4, 0.15, 0.14, 4.6e-4, 0.23).
+# The worst tensors are fnet's 1/32 stage and head (4x6 maps), the same
+# with the plain sampler on the card: cuDNN's float32 convolutions set
+# these bounds (PERF.md)
+CTF_STEP_BOUNDS = {"loss": 1e-5, "gradient": 1e-1, "median gradient": 1e-3,
+                   "update": 4e-2, "params": 2e-4}
+# main train: s0-chairs' batch and crop, 8 batches of one epoch
+CTF_TRAIN_SHAPE = (384, 512)
+CTF_TRAIN_BATCH = 10
+CTF_TRAIN_PAIRS = 80
+CTF_TRAIN_STEPS = 8
+
+# sampler cases (b, h2, w2, c, h, w): the ctf paths' levels, f2 and the
+# centres on one grid. The training levels 3-5 at b10 384x512 (level 3 also
+# in bf16, as under the mixed-precision policy), the 448x1024 serve
+# bucket's level 3 at batch 4, and two ragged tiny cases (C = 5, and C = 40:
+# one full and one masked 32-channel chunk)
+SW_CASES = (
+    {"name": "train level 3", "dtype": "float32",
+     "shape": (10, 48, 64, 32, 48, 64)},
+    {"name": "train level 3", "dtype": "bfloat16",
+     "shape": (10, 48, 64, 32, 48, 64)},
+    {"name": "train level 4", "dtype": "float32",
+     "shape": (10, 24, 32, 32, 24, 32)},
+    {"name": "train level 5", "dtype": "float32",
+     "shape": (10, 12, 16, 32, 12, 16)},
+    {"name": "serve 448x1024 level 3", "dtype": "float32",
+     "shape": (4, 56, 128, 32, 56, 128)},
+    {"name": "ragged", "dtype": "float32", "shape": (2, 13, 17, 5, 6, 7)},
+    {"name": "ragged", "dtype": "bfloat16", "shape": (2, 13, 17, 40, 6, 7)},
+)
+SW_MAIN_CASE = 0      # the kernels line quotes the level-3 training case
+# far out-of-bounds centres (b, y, x, cx, cy): their windows are exact zeros
+SW_FAR = ((0, 0, 0, 1e4, -1e4), (1, 2, 3, -3e4, 5.5), (1, 5, 6, 40.0, 1e5))
+# float32 operations per window value: the y lerp over K rows of K + 1 taps
+# and the x lerp over K x K (3 each: two multiplies, one add), per K^2
+# values; the backward runs both transposes and one add per tap
+SW_K = 2 * CTF_RADIUS + 1
+SW_OPS_PER_VALUE = 3 * (SW_K * (SW_K + 1) + SW_K * SW_K) / (SW_K * SW_K)
+SW_BWD_OPS_PER_VALUE = SW_OPS_PER_VALUE + (SW_K + 1) ** 2 / (SW_K * SW_K)
+# backward tolerance, relative to S, the sum of the magnitudes of the terms
+# each df2 element adds (the plain backward of |dout|: the lerp weights are
+# >= 0). Two orders of summing n float32 terms differ by at most
+# 2 (n - 1) 2^-24 S; atomics add in any order. 2^-13 covers n <= 1,024
+# terms per element; these inputs give about 400 (some 100 windows cover
+# each tap, each through up to 4 lerp weights)
+SW_BWD_ORDER_REL = 2.0 ** -13
 
 def emit(**fields):
     print(json.dumps(fields), flush=True)
@@ -164,20 +269,25 @@ def phase_environment():
 
 
 def phase_build():
+    """Every kernel source, one ``nvcc`` each, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from raft_meets_dicl_tpu_torch.ops import cuda_build
 
-    path, seconds, log = cuda_build.build("convex_combine_8x")
-    ptxas = [line.strip() for line in log.splitlines()
-             if "registers" in line or "spill" in line
-             or "Compiling entry function" in line]
-    emit(phase="build", kernel="convex_combine_8x", seconds=round(seconds, 3),
-         library=str(path.relative_to(ROOT)), ptxas=ptxas)
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        builds = list(pool.map(cuda_build.build, KERNEL_SOURCES))
+    for name, (path, seconds, log) in zip(KERNEL_SOURCES, builds):
+        ptxas = [line.strip() for line in log.splitlines()
+                 if "registers" in line or "spill" in line
+                 or "Compiling entry function" in line]
+        emit(phase="build", kernel=name, seconds=round(seconds, 3),
+             library=str(path.relative_to(ROOT)), ptxas=ptxas)
 
 
 def phase_kernels(card):
     """convex_combine_8x against its plain version, both logits dtypes,
-    at M = 700 (ragged), the entry shape, both serve buckets and the
-    training shape."""
+    at M = 700 (ragged) and the rows of raft/baseline's entry shape, serve
+    buckets and training, and of ctf-l3's serve buckets and training."""
     from raft_meets_dicl_tpu_torch.ops import convex
 
     set_tf32(False)
@@ -286,6 +396,7 @@ def phase_model(card):
          launches_per_forward=launches, forward_f32_ms=forward_f32_ms,
          forward_bf16_ms=forward_bf16_ms, cpu_forward_s=round(cpu_s, 3),
          card=card)
+    return launches
 
 
 def phase_serve(card):
@@ -345,8 +456,9 @@ def _bf16_ulp(x):
 
 def phase_kernels_bwd(card):
     """The backward kernel against autograd of the plain version, both
-    logits dtypes, at M = 700 (ragged), the entry shape and the training
-    shape; timed beside the plain backward and the bound."""
+    logits dtypes, at M = 700 (ragged), raft/baseline's entry and training
+    rows and ctf-l3's training rows; timed beside the plain backward and
+    the bound."""
     from raft_meets_dicl_tpu_torch.ops import convex
 
     set_tf32(False)
@@ -458,36 +570,57 @@ def _step_readings(spec, aux, cpu_spec, aux_cpu, before):
                                for n, p in params_cpu.items()))
 
 
-def _step_problems(r):
+def _step_problems(r, bounds):
     """The bounds a step's readings break, by name, with their readings."""
     problems = {}
-    if not r["loss_rel_diff"] <= STEP_LOSS_REL:
+    if not r["loss_rel_diff"] <= bounds["loss"]:
         problems["loss"] = f"loss relative |diff| {r['loss_rel_diff']}"
-    if not r["max_grad_rel_l2"] <= STEP_GRAD_REL_L2:
+    if not r["max_grad_rel_l2"] <= bounds["gradient"]:
         problems["gradient"] = (f"gradient '{r['worst_grad']}' relative L2 "
                                 f"{r['max_grad_rel_l2']}")
+    if not r["median_grad_rel_l2"] <= bounds["median gradient"]:
+        problems["median gradient"] = ("median gradient relative L2 "
+                                       f"{r['median_grad_rel_l2']}")
     if not r["zero_grad_max_norm"] <= r["bound_zero_grad_norm"]:
         problems["zero gradient"] = ("a zero-by-construction gradient has "
                                      f"norm {r['zero_grad_max_norm']}")
-    if not r["update_rel_l2"] <= STEP_UPDATE_REL_L2:
+    if not r["update_rel_l2"] <= bounds["update"]:
         problems["update"] = f"update relative L2 {r['update_rel_l2']}"
-    if not r["param_max_abs_diff"] <= STEP_PARAM_MAX_ABS:
+    if not r["param_max_abs_diff"] <= bounds["params"]:
         problems["params"] = ("params after the update max |diff| "
                               f"{r['param_max_abs_diff']}")
     return problems
 
 
-def phase_train_step(card):
-    """One float32 train step of full-width raft/baseline, 12 iterations,
-    card vs CPU from the same weights and batch, frozen batch norm. The
-    same step on the card with TF32 convolutions and matmuls is read
-    against the same bounds, to show that they can fail."""
+def _zero_counts():
+    from raft_meets_dicl_tpu_torch.ops import convex, sample
+
+    convex.launches = convex.bwd_launches = 0
+    sample.launches = sample.bwd_launches = 0
+
+
+def _counts():
+    """Every kernel's launch count, by the name in the kernels line."""
+    from raft_meets_dicl_tpu_torch.ops import convex, sample
+
+    return {"convex_combine_8x": convex.launches,
+            "convex_combine_8x_bwd": convex.bwd_launches,
+            "sample_window": sample.launches,
+            "sample_window_bwd": sample.bwd_launches}
+
+
+def _step_card_vs_cpu(load_spec, shape, lr, frozen_bn, seed):
+    """One float32 train step (AdamW at weight decay 1e-4 and eps
+    STEP_EPS, clip norm 1.0) of the model ``load_spec()`` builds, on the
+    card with TF32 off, on the card with TF32 convolutions and matmuls, and
+    on the CPU, from the same seeded weights and batch. Returns the card's
+    and the TF32 step's readings against the CPU, the card step's kernel
+    launches, the CPU's aux and seconds."""
     from raft_meets_dicl_tpu_torch import parallel, strategy
-    from raft_meets_dicl_tpu_torch.ops import convex
 
     set_tf32(False)
-    rng = np.random.default_rng(2)
-    b, h, w = STEP_SHAPE
+    rng = np.random.default_rng(seed)
+    b, h, w = shape
     batch = [rng.uniform(-1, 1, (b, h, w, 3)).astype(np.float32),
              rng.uniform(-1, 1, (b, h, w, 3)).astype(np.float32),
              (4 * rng.standard_normal((b, h, w, 2))).astype(np.float32),
@@ -495,11 +628,11 @@ def phase_train_step(card):
     batch = [torch.from_numpy(x) for x in batch]
 
     optimizer = strategy.spec.OptimizerSpec("adam-w", {
-        "lr": STEP_LR, "weight_decay": 1e-4, "eps": STEP_EPS})
+        "lr": lr, "weight_decay": 1e-4, "eps": STEP_EPS})
     gradient = strategy.spec.GradientSpec.from_config(
         {"clip": {"type": "norm", "value": 1.0}})
 
-    cpu_spec = _load_raft(False)
+    cpu_spec = load_spec()
     cpu_spec.model.init(torch.Generator().manual_seed(0), device="cpu")
     weights = {n: t.clone()
                for n, t in cpu_spec.model.module.state_dict().items()}
@@ -509,24 +642,21 @@ def phase_train_step(card):
     def run(device):
         spec = cpu_spec
         if device == "cuda":
-            spec = _load_raft(False)
+            spec = load_spec()
             spec.model.module.load_state_dict(weights)
             spec.model.module.to("cuda")
-        spec.model.on_stage(None, freeze_batchnorm=True)
+        spec.model.on_stage(None, freeze_batchnorm=frozen_bn)
         tx, _ = optimizer.build(spec.model.module.parameters(), gradient)
         step = parallel.make_train_step(spec.model, spec.loss,
                                         with_grads=True)
         state = parallel.TrainState(spec.model, tx)
-        _, aux = step(state, STEP_LR, *(x.to(device) for x in batch))
+        _, aux = step(state, lr, *(x.to(device) for x in batch))
         return spec, aux
 
-    convex.launches = convex.bwd_launches = 0
+    _zero_counts()
     gpu_spec, aux_gpu = run("cuda")
     torch.cuda.synchronize()
-    launches = (convex.launches, convex.bwd_launches)
-    if launches != (1, 1):
-        raise AssertionError(f"train step launched the forward/backward "
-                             f"kernels {launches} times, expected (1, 1)")
+    launches = _counts()
     set_tf32(True)
     tf32_spec, aux_tf32 = run("cuda")
     set_tf32(False)
@@ -540,37 +670,58 @@ def phase_train_step(card):
 
     readings = _step_readings(gpu_spec, aux_gpu, cpu_spec, aux_cpu, before)
     tf32 = _step_readings(tf32_spec, aux_tf32, cpu_spec, aux_cpu, before)
+    return readings, tf32, launches, aux_cpu, cpu_s
+
+
+def _check_step(name, readings, tf32, bounds):
+    problems = list(_step_problems(readings, bounds).values())
+    # each bound must tell the TF32 step from the float32 one, or it could
+    # not fail
+    blind = set(STEP_TF32_BREAKS) - set(_step_problems(tf32, bounds))
+    if blind:
+        problems.append(f"the TF32 step stays inside the {sorted(blind)} "
+                        "bounds")
+    if problems:
+        raise AssertionError(f"{name} card vs CPU: " + "; ".join(problems))
+
+
+def phase_train_step(card):
+    """One float32 train step of full-width raft/baseline, 12 iterations,
+    card vs CPU from the same weights and batch, frozen batch norm. The
+    same step on the card with TF32 convolutions and matmuls is read
+    against the same bounds, to show that they can fail."""
+    readings, tf32, launches, aux_cpu, cpu_s = _step_card_vs_cpu(
+        lambda: _load_raft(False), STEP_SHAPE, STEP_LR, True, 2)
+    launches = (launches["convex_combine_8x"],
+                launches["convex_combine_8x_bwd"])
+    if launches != (1, 1):
+        raise AssertionError(f"train step launched the forward/backward "
+                             f"kernels {launches} times, expected (1, 1)")
     emit(phase="train-step", model="raft/baseline", shape=list(STEP_SHAPE),
          iterations=12, tf32=False,
          optimizer=f"adam-w (eps {STEP_EPS}) + clip norm 1.0", lr=STEP_LR,
          frozen_bn=True, loss_cpu=aux_cpu["loss"].item(),
          grad_norm_cpu=aux_cpu["grad_norm"].item(),
          update_norm_cpu=aux_cpu["update_norm"].item(),
-         bound_loss_rel=STEP_LOSS_REL, bound_grad_rel_l2=STEP_GRAD_REL_L2,
-         bound_update_rel_l2=STEP_UPDATE_REL_L2,
-         bound_param=STEP_PARAM_MAX_ABS, launches_fwd_bwd=list(launches),
+         bounds=RAFT_STEP_BOUNDS, launches_fwd_bwd=list(launches),
          cpu_step_s=round(cpu_s, 3), card=card, **readings,
-         tf32_readings=tf32, tf32_outside_bounds=_step_problems(tf32))
-    problems = list(_step_problems(readings).values())
-    # each bound must tell the TF32 step from the float32 one (H100 runs
-    # read TF32 4.4x to 7.4x over them, see PERF.md), or it could not fail
-    blind = set(STEP_TF32_BREAKS) - set(_step_problems(tf32))
-    if blind:
-        problems.append(f"the TF32 step stays inside the {sorted(blind)} "
-                        "bounds")
-    if problems:
-        raise AssertionError("train step card vs CPU: " + "; ".join(problems))
+         tf32_readings=tf32,
+         tf32_outside_bounds=_step_problems(tf32, RAFT_STEP_BOUNDS))
+    # H100 runs read TF32 4.4x to 7.4x over the bounds (see PERF.md)
+    _check_step("raft train step", readings, tf32, RAFT_STEP_BOUNDS)
+    return launches
 
 
-def _write_training_tree(root):
-    """A generic-layout dataset of one scene: TRAIN_PAIRS + 1 frames of a
+def _write_training_tree(root, shape, pairs, strategy):
+    """A generic-layout dataset of one scene: ``pairs`` + 1 frames of a
     smooth random texture, each shifted by a constant (3, -2) px from the
-    last, so every pair's flow is that shift; PNG frames, .flo flows."""
+    last, so every pair's flow is that shift; PNG frames, .flo flows; and
+    ``strategy`` as strategy.yaml beside it."""
     import cv2
 
     from raft_meets_dicl_tpu_torch.data import io
 
-    h, w = TRAIN_SHAPE
+    h, w = shape
     dx, dy = 3, -2
     rng = np.random.default_rng(3)
     base = cv2.resize(rng.integers(0, 256, (h // 4, w // 4, 3), np.uint8),
@@ -578,10 +729,10 @@ def _write_training_tree(root):
     flow = np.broadcast_to(np.array([dx, dy], np.float32), (h, w, 2))
     (root / "frames").mkdir(parents=True)
     (root / "flows").mkdir()
-    for i in range(TRAIN_PAIRS + 1):
+    for i in range(pairs + 1):
         frame = np.roll(base, (i * dy, i * dx), axis=(0, 1))
         cv2.imwrite(str(root / "frames" / f"frame_{i:04d}.png"), frame)
-        if i < TRAIN_PAIRS:
+        if i < pairs:
             io.write_flow_mb(root / "flows" / f"frame_{i:04d}.flo", flow)
 
     (root / "dataset.yaml").write_text(
@@ -593,56 +744,62 @@ def _write_training_tree(root):
         "  images: 'frames/frame_{idx:04d}.png'\n"
         "  flows: 'flows/frame_{idx:04d}.flo'\n"
         "  key: 'synthetic/{idx:04d}'\n")
-    # s1-things.yaml's optimizer, one-cycle schedule, clip and loss gamma
-    (root / "strategy.yaml").write_text(
+    (root / "strategy.yaml").write_text(strategy)
+
+
+def _strategy(name, batch, on_stage, max_lr, gamma=None):
+    """One stage on the synthetic scene: AdamW (weight decay 1e-4, eps
+    1e-8), the one-cycle schedule and clip of the shipped stages."""
+    loss = f"    loss:\n      arguments: {{gamma: {gamma}}}\n" if gamma else ""
+    return (
         "mode: continuous\n"
         "stages:\n"
-        "  - name: synthetic scene, s1-things recipe\n"
-        "    id: synthetic/s1\n"
+        f"  - name: synthetic scene, {name} recipe\n"
+        f"    id: synthetic/{name}\n"
         "    data:\n"
         "      epochs: 2\n"
-        f"      batch-size: {TRAIN_BATCH}\n"
+        f"      batch-size: {batch}\n"
         "      source: {type: dataset, spec: dataset.yaml}\n"
         "    model:\n"
-        "      on-stage: {freeze_batchnorm: true}\n"
-        "    loss:\n"
-        "      arguments: {gamma: 0.8}\n"
+        f"      on-stage: {{freeze_batchnorm: {on_stage}}}\n"
+        + loss +
         "    optimizer:\n"
         "      type: adam-w\n"
-        "      parameters: {lr: 0.000125, weight_decay: 0.0001, eps: 1.0e-8}\n"
+        f"      parameters: {{lr: {max_lr}, weight_decay: 0.0001, "
+        "eps: 1.0e-8}\n"
         "    lr-scheduler:\n"
         "      instance:\n"
         "        - type: one-cycle\n"
-        "          parameters: {max_lr: 0.000125, total_steps: '100000 + 100',\n"
+        f"          parameters: {{max_lr: {max_lr}, total_steps: "
+        "'100000 + 100',\n"
         "                       pct_start: 0.05, cycle_momentum: false,\n"
         "                       anneal_strategy: linear}\n"
         "    gradient:\n"
         "      clip: {type: norm, value: 1.0}\n")
 
 
-def phase_train(card):
-    """The train command end to end with the shipped bf16-policy config."""
+def _train_command(model_cfg, shape, batch, pairs, steps, strategy):
+    """The train command end to end on a synthetic tree in a temporary
+    directory; returns its context, readings and every kernel's launches
+    in the run."""
     from raft_meets_dicl_tpu_torch import main as port_main
-    from raft_meets_dicl_tpu_torch.ops import convex
 
-    torch.backends.cudnn.allow_tf32 = True
-    torch.backends.cuda.matmul.allow_tf32 = False
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         t0 = time.perf_counter()
-        _write_training_tree(tmp / "data")
+        _write_training_tree(tmp / "data", shape, pairs, strategy)
         write_s = time.perf_counter() - t0
 
         torch.cuda.reset_peak_memory_stats()
-        convex.launches = convex.bwd_launches = 0
+        _zero_counts()
         t0 = time.perf_counter()
         tctx = port_main.main([
             "train", "-d", str(tmp / "data" / "strategy.yaml"),
-            "-m", str(ROOT / "cfg" / "model" / "raft-baseline.yaml"),
-            "-o", str(tmp / "runs"), "--limit-steps", str(TRAIN_STEPS)])
+            "-m", str(model_cfg), "-o", str(tmp / "runs"),
+            "--limit-steps", str(steps)])
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-        launches = (convex.launches, convex.bwd_launches)
+        launches = _counts()
         peak = torch.cuda.max_memory_allocated()
         run_files = sorted(p.name for p in tctx.path.iterdir())
 
@@ -655,39 +812,520 @@ def phase_train(card):
             t0 = time.perf_counter()
 
     history = tctx.history
-    steps = len(history)
     problems = []
-    if steps != TRAIN_STEPS or tctx.step != TRAIN_STEPS:
-        problems.append(f"ran {steps} steps, expected {TRAIN_STEPS}")
+    if len(history) != steps or tctx.step != steps:
+        problems.append(f"ran {len(history)} steps, expected {steps}")
     if not all(np.isfinite(h["loss"]) and h["finite"] for h in history):
         problems.append("non-finite loss or flow: "
                         f"{[h['loss'] for h in history]}")
-    if launches != (steps, steps):
-        problems.append(f"forward/backward kernels launched {launches} "
-                        f"times, expected {steps} each")
     if not {"config.json", "main.log", "model.txt"} <= set(run_files):
         problems.append(f"run directory holds {run_files}")
-    if problems:
-        raise AssertionError("train phase: " + "; ".join(problems))
 
     # the first step pays one-time costs (loader start, library warm-up):
     # the median leaves it out, the whole window's rate keeps it
     step_ms = [h["ms"] for h in history]
     median_ms = statistics.median(step_ms[1:])
+    readings = dict(
+        shape=[batch, *shape], steps=len(history),
+        losses=[h["loss"] for h in history],
+        lrs=[h["lr"] for h in history],
+        grad_norms=[h["grad_norm"] for h in history],
+        step_ms=step_ms, median_step_ms=median_ms,
+        pairs_per_sec=batch * 1e3 / median_ms,
+        window_pairs_per_sec=batch * len(history) * 1e3 / sum(step_ms),
+        wall_pairs_per_sec=batch * len(history) / wall_s,
+        max_memory_allocated=peak, launches=launches,
+        loader_workers=tctx.data.num_workers, loader_batch_ms=loader_ms,
+        wall_s=round(wall_s, 3), dataset_write_s=round(write_s, 3),
+        run_files=run_files)
+    return readings, problems
+
+
+def phase_train(card):
+    """The train command end to end with the shipped bf16-policy config."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    readings, problems = _train_command(
+        ROOT / "cfg" / "model" / "raft-baseline.yaml", TRAIN_SHAPE,
+        TRAIN_BATCH, TRAIN_PAIRS, TRAIN_STEPS,
+        _strategy("s1-things", TRAIN_BATCH, "true", 0.000125, gamma=0.8))
+    steps = readings["steps"]
+    launches = (readings["launches"]["convex_combine_8x"],
+                readings["launches"]["convex_combine_8x_bwd"])
+    if launches != (steps, steps):
+        problems.append(f"forward/backward kernels launched {launches} "
+                        f"times, expected {steps} each")
+    if problems:
+        raise AssertionError("train phase: " + "; ".join(problems))
     emit(phase="train", model="raft/baseline (bf16 policy, frozen BN)",
-         shape=[TRAIN_BATCH, *TRAIN_SHAPE], iterations=12, steps=steps,
-         losses=[h["loss"] for h in history],
-         lrs=[h["lr"] for h in history],
-         grad_norms=[h["grad_norm"] for h in history],
-         step_ms=step_ms, median_step_ms=median_ms,
-         pairs_per_sec=TRAIN_BATCH * 1e3 / median_ms,
-         window_pairs_per_sec=TRAIN_BATCH * steps * 1e3 / sum(step_ms),
-         wall_pairs_per_sec=TRAIN_BATCH * steps / wall_s,
-         max_memory_allocated=peak, launches_fwd_bwd=list(launches),
-         loader_workers=tctx.data.num_workers, loader_batch_ms=loader_ms,
-         wall_s=round(wall_s, 3), dataset_write_s=round(write_s, 3),
-         run_files=run_files, card=card)
+         iterations=12, card=card, **readings)
     return launches
+
+
+# -- raft+dicl/ctf-l3 -----------------------------------------------------------
+
+
+def _sw_inputs(case, gen):
+    """f2 and centres for one sampler case: the level's grid plus a smooth
+    random flow of a few px and a few far out-of-bounds centres."""
+    b, h2, w2, c, h, w = case["shape"]
+    dtype = getattr(torch, case["dtype"])
+    f2 = torch.randn(b, h2, w2, c, device="cuda", generator=gen).to(dtype)
+    ys, xs = torch.meshgrid(torch.arange(h, device="cuda"),
+                            torch.arange(w, device="cuda"), indexing="ij")
+    grid = torch.stack((xs * (w2 / w), ys * (h2 / h)), dim=-1).float()
+    coords = grid + 4 * torch.randn(b, h, w, 2, device="cuda", generator=gen)
+    for bi, y, x, cx, cy in SW_FAR:
+        coords[bi, y, x] = torch.tensor([cx, cy])
+    return f2, coords.contiguous()
+
+
+def _sw_bound(out, ref, dtype, scale=0.0):
+    """|diff| <= 1e-5 + ``scale`` (+ one bf16 ulp of the larger value for
+    bf16 outputs); returns the largest |diff| and its share of the bound."""
+    err = (out.float() - ref.float()).abs()
+    bound = KERNEL_MAX_ABS_ERR + scale
+    if dtype == torch.bfloat16:
+        bound = bound + _bf16_ulp(torch.maximum(out.float().abs(),
+                                                ref.float().abs()))
+    return err.max().item(), (err / bound).max().item()
+
+
+def _grid_sample_window(f2, coords, radius):
+    """The library call for the window: ``F.grid_sample`` over a (B,
+    K·K·H, W) grid of normalized positions (built here, outside any
+    timing); returns the call and a view of its output in the window's
+    (B, K, K, H, W, C) layout."""
+    import torch.nn.functional as F
+
+    b, h2, w2, c = f2.shape
+    h, w = coords.shape[1:3]
+    k = 2 * radius + 1
+    d = torch.arange(-radius, radius + 1, device="cuda", dtype=torch.float32)
+    gx = coords[..., 0][:, None, None] + d[None, :, None, None, None]
+    gy = coords[..., 1][:, None, None] + d[None, None, :, None, None]
+    gx, gy = torch.broadcast_tensors(gx, gy)          # (B, K, K, H, W)
+    grid = torch.stack((2 * gx / (w2 - 1) - 1, 2 * gy / (h2 - 1) - 1), -1)
+    grid = grid.reshape(b, k * k * h, w, 2).contiguous()
+    f2n = f2.permute(0, 3, 1, 2)
+
+    def call(inp=f2n):
+        return F.grid_sample(inp, grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=True)
+
+    def as_window(out):
+        return out.reshape(b, c, k, k, h, w).permute(0, 2, 3, 4, 5, 1)
+
+    return call, as_window
+
+
+def phase_sw_kernels(card):
+    """Both sample_window kernels against their plain version (autograd of
+    it for the backward) on the card, TF32 off, at the ctf paths' shapes;
+    timed beside the plain version, the bound and ``F.grid_sample``."""
+    from raft_meets_dicl_tpu_torch.ops import sample
+
+    set_tf32(False)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    r = CTF_RADIUS
+    k = 2 * r + 1
+    cases = []
+    for case in SW_CASES:
+        dtype = getattr(torch, case["dtype"])
+        f2, coords = _sw_inputs(case, gen)
+        before = sample.launches
+        out = sample.sample_window_fused(f2, coords, r)
+        torch.cuda.synchronize()
+        if sample.launches != before + 1:
+            raise AssertionError("sample_window did not launch")
+        ref = sample.sample_window(f2, coords, r)
+        err, share = _sw_bound(out, ref, dtype)
+        if not share <= 1.0 or any(
+                out[bi, :, :, y, x].abs().max().item() != 0
+                for bi, y, x, _, _ in SW_FAR):
+            raise AssertionError(f"sample_window {case}: max |diff| {err} "
+                                 f"({share} of its bound), or a far "
+                                 "out-of-bounds window not exact zeros")
+
+        dout = torch.randn(out.shape, device="cuda", generator=gen).to(dtype)
+        before = sample.bwd_launches
+        df2 = sample._launch_bwd(dout, coords, tuple(f2.shape), r).to(dtype)
+        torch.cuda.synchronize()
+        if sample.bwd_launches != before + 1:
+            raise AssertionError("sample_window backward did not launch")
+        f2r = f2.detach().requires_grad_(True)
+        ref_out = sample.sample_window(f2r, coords, r)
+        (ref_df2,) = torch.autograd.grad(ref_out, f2r, dout,
+                                         retain_graph=True)
+        # rule: |diff| <= 1e-5 + SW_BWD_ORDER_REL * S (the kernel's atomics
+        # and the plain scatter add the same float32 terms in other
+        # orders), plus one bf16 ulp for a bf16 df2 (each side rounds its
+        # float32 sum once)
+        f2f = f2.detach().float().requires_grad_(True)
+        (s,) = torch.autograd.grad(sample.sample_window(f2f, coords, r), f2f,
+                                   dout.abs().float())
+        bwd_err, bwd_share = _sw_bound(df2, ref_df2, dtype,
+                                       SW_BWD_ORDER_REL * s)
+        if not bwd_share <= 1.0:
+            raise AssertionError(f"sample_window backward {case}: max |diff| "
+                                 f"{bwd_err} ({bwd_share} of its bound)")
+        bwd_err_over_s = ((df2.float() - ref_df2.float()).abs()
+                          / s.clamp(min=1e-30)).max().item()
+        del s, f2f
+
+        ms = gpu_timer_ms(lambda: sample.sample_window_fused(f2, coords, r))
+        plain_ms = gpu_timer_ms(lambda: sample.sample_window(f2, coords, r))
+        bwd_ms = gpu_timer_ms(lambda: sample._launch_bwd(
+            dout, coords, tuple(f2.shape), r).to(dtype))
+        plain_bwd_ms = gpu_timer_ms(lambda: torch.autograd.grad(
+            ref_out, f2r, dout, retain_graph=True))
+        del ref_out
+
+        lib = {}
+        if dtype == torch.float32:
+            # the library call computes the same window (coordinates go
+            # through [-1, 1] and back, so it is checked at 1e-4)
+            call, as_window = _grid_sample_window(f2, coords, r)
+            lib_err = (as_window(call()) - ref).abs().max().item()
+            if not lib_err <= 1e-4:
+                raise AssertionError(f"grid_sample window differs by {lib_err}")
+            f2n = f2.permute(0, 3, 1, 2).detach().requires_grad_(True)
+            lib_out = call(f2n)
+            dlib = dout.permute(0, 5, 1, 2, 3, 4).reshape(lib_out.shape)
+            lib = dict(
+                library_err=lib_err, library_ms=gpu_timer_ms(call),
+                library_bwd_ms=gpu_timer_ms(lambda: torch.autograd.grad(
+                    lib_out, f2n, dlib, retain_graph=True)))
+            del lib_out
+
+        b, h2, w2, c, h, w = case["shape"]
+        positions = b * h * w
+        out_bytes = out.numel() * out.element_size()
+        in_bytes = f2.numel() * f2.element_size() + coords.numel() * 4
+        fwd_ms_b = 1e3 * (in_bytes + out_bytes) / PEAK_BYTES_S
+        fwd_ms_o = 1e3 * out.numel() * SW_OPS_PER_VALUE / PEAK_F32_OPS_S
+        bwd_ms_b = 1e3 * (out_bytes + coords.numel() * 4
+                          + f2.numel() * f2.element_size()) / PEAK_BYTES_S
+        bwd_ms_o = 1e3 * out.numel() * SW_BWD_OPS_PER_VALUE / PEAK_F32_OPS_S
+        record = dict(
+            case=case["name"], dtype=case["dtype"], f2=[b, h2, w2, c],
+            coords=[b, h, w, 2], radius=r, positions=positions,
+            max_abs_err=err, err_over_bound=share, ms=ms, plain_ms=plain_ms,
+            bound_ms=max(fwd_ms_b, fwd_ms_o),
+            bound_by="bytes" if fwd_ms_b >= fwd_ms_o else "operations",
+            bytes=in_bytes + out_bytes, bwd_max_abs_err=bwd_err,
+            bwd_err_over_bound=bwd_share, bwd_err_over_s=bwd_err_over_s,
+            bwd_ms=bwd_ms,
+            plain_bwd_ms=plain_bwd_ms, bwd_bound_ms=max(bwd_ms_b, bwd_ms_o),
+            bwd_bound_by="bytes" if bwd_ms_b >= bwd_ms_o else "operations",
+            **lib)
+        cases.append(record)
+        emit(phase="kernel-check", kernel="sample_window", tf32=False,
+             card=card, **record)
+    return cases
+
+
+def _load_ctf(mixed_precision=False):
+    from raft_meets_dicl_tpu_torch import models, utils
+
+    cfg = utils.config.load(CTF_CFG)
+    cfg["model"]["parameters"]["mixed-precision"] = mixed_precision
+    return models.load(cfg)
+
+
+def phase_ctf_model(card):
+    """raft+dicl/ctf-l3 f32, full width, iterations (4, 3, 3), at
+    1x384x512: card vs CPU, same seeded weights, TF32 off."""
+    from raft_meets_dicl_tpu_torch import evaluation
+
+    set_tf32(False)
+    rng = np.random.default_rng(5)
+    h, w = CTF_MODEL_SHAPE
+    img1, img2 = (torch.from_numpy(rng.uniform(-1, 1, (1, h, w, 3))
+                                   .astype(np.float32)) for _ in range(2))
+
+    cpu_spec = _load_ctf()
+    cpu_spec.model.init(torch.Generator().manual_seed(0), device="cpu")
+    gpu_spec = _load_ctf()
+    gpu_spec.model.module.load_state_dict(cpu_spec.model.module.state_dict())
+    gpu_spec.model.module.to("cuda").eval()
+
+    cpu_step = evaluation.make_eval_fn(cpu_spec.model)
+    gpu_step = evaluation.make_eval_fn(gpu_spec.model)
+    x1, x2 = img1.cuda(), img2.cuda()
+
+    _zero_counts()
+    raw, flow_gpu = gpu_step(x1, x2)
+    torch.cuda.synchronize()
+    launches = _counts()
+    expected = {"sample_window": CTF_ITERATIONS, "convex_combine_8x": 1,
+                "sample_window_bwd": 0, "convex_combine_8x_bwd": 0}
+    if launches != expected:
+        raise AssertionError(f"ctf forward launched {launches}, expected "
+                             f"{expected}")
+    if [len(level) for level in raw] != [4, 3, 3] \
+            or tuple(flow_gpu.shape) != (1, h, w, 2):
+        raise AssertionError(f"unexpected output: {[len(x) for x in raw]} "
+                             f"flows per level, final {tuple(flow_gpu.shape)}")
+
+    t0 = time.perf_counter()
+    _, flow_cpu = cpu_step(img1, img2)
+    cpu_s = time.perf_counter() - t0
+    flow_gpu = flow_gpu.cpu()
+    if not bool(torch.isfinite(flow_gpu).all()):
+        raise AssertionError("non-finite flow on the card")
+    diff = (flow_gpu - flow_cpu).abs().max().item()
+    scale = flow_cpu.abs().max().item()
+    if not diff <= CTF_MODEL_REL * max(scale, 1.0):
+        raise AssertionError(f"ctf card vs CPU final flow max |diff| {diff} "
+                             f"px > {CTF_MODEL_REL} of {scale} px")
+
+    forward_f32_ms = gpu_timer_ms(lambda: gpu_step(x1, x2), launches=3)
+    bf16_spec = _load_ctf(True)
+    bf16_spec.model.module.load_state_dict(cpu_spec.model.module.state_dict())
+    bf16_spec.model.module.to("cuda").eval()
+    bf16_step = evaluation.make_eval_fn(bf16_spec.model)
+    forward_bf16_ms = gpu_timer_ms(lambda: bf16_step(x1, x2), launches=3)
+
+    emit(phase="ctf-model", model="raft+dicl/ctf-l3", shape=[1, h, w],
+         iterations=list(CTF_LEVEL_ITERATIONS), tf32=False,
+         max_abs_diff_px=diff, max_abs_flow_px=scale,
+         bound_rel=CTF_MODEL_REL, launches_per_forward=launches,
+         forward_f32_ms=forward_f32_ms, forward_bf16_ms=forward_bf16_ms,
+         cpu_forward_s=round(cpu_s, 3), card=card)
+    return launches
+
+
+def phase_ctf_serve(card):
+    """The serve command end to end with the shipped ctf-l3 config (f32)."""
+    from raft_meets_dicl_tpu_torch import main as port_main
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = Path(tmp) / "serve.yaml"
+        cfg.write_text(
+            "serve:\n"
+            f"  model: {CTF_CFG}\n"
+            f"  buckets: {CTF_BUCKETS}\n"
+            "  batch-size: 4\n"
+            "  max-wait-ms: 50\n"
+            "  requests: 16\n"
+            "  rate: 50\n")
+        _zero_counts()
+        report = port_main.main(["serve", "-c", str(cfg)])
+        launches = _counts()
+
+    dispatched = report["batches"] + len(report["warmup"])
+    expected = {"sample_window": CTF_ITERATIONS * dispatched,
+                "convex_combine_8x": dispatched, "sample_window_bwd": 0,
+                "convex_combine_8x_bwd": 0}
+    problems = []
+    if report["completed"] != report["requests"] or report["requests"] != 16:
+        problems.append(f"completed {report['completed']}/{report['requests']}")
+    if report["errors"] or report["rejected"]:
+        problems.append(f"errors {report['errors']}, rejected "
+                        f"{report['rejected']}")
+    if report["nonfinite"]:
+        problems.append(f"{report['nonfinite']} non-finite flows")
+    if launches != expected:
+        problems.append(f"kernels launched {launches}, expected {expected} "
+                        "(batches + warm-up)")
+    if problems:
+        raise AssertionError("ctf serve phase: " + "; ".join(problems))
+
+    emit(phase="ctf-serve", model="raft+dicl/ctf-l3 (f32)",
+         buckets=CTF_BUCKETS, batch=4, requests=report["requests"],
+         completed=report["completed"], batches=report["batches"],
+         launches=launches, p50_ms=report["p50_ms"], p99_ms=report["p99_ms"],
+         pairs_per_sec=report["pairs_per_sec"], spans_ms=report["spans_ms"],
+         card=card)
+    return launches
+
+
+def phase_ctf_train_step(card):
+    """One float32 train step of full-width ctf-l3, iterations (4, 3, 3),
+    with live batch norm (s0-chairs' freeze_batchnorm: false) and
+    s0-chairs' optimizer, card vs CPU; the same step with TF32 must break
+    each bound."""
+    readings, tf32, launches, aux_cpu, cpu_s = _step_card_vs_cpu(
+        _load_ctf, CTF_STEP_SHAPE, CTF_LR, False, 6)
+    expected = {"sample_window": CTF_ITERATIONS,
+                "sample_window_bwd": CTF_ITERATIONS,
+                "convex_combine_8x": 1, "convex_combine_8x_bwd": 1}
+    emit(phase="ctf-train-step", model="raft+dicl/ctf-l3",
+         shape=list(CTF_STEP_SHAPE), iterations=list(CTF_LEVEL_ITERATIONS),
+         tf32=False, optimizer=f"adam-w (eps {STEP_EPS}) + clip norm 1.0",
+         lr=CTF_LR, frozen_bn=False, loss_cpu=aux_cpu["loss"].item(),
+         grad_norm_cpu=aux_cpu["grad_norm"].item(),
+         update_norm_cpu=aux_cpu["update_norm"].item(),
+         bounds=CTF_STEP_BOUNDS, launches=launches,
+         cpu_step_s=round(cpu_s, 3), card=card, **readings,
+         tf32_readings=tf32,
+         tf32_outside_bounds=_step_problems(tf32, CTF_STEP_BOUNDS))
+    if launches != expected:
+        raise AssertionError(f"ctf train step launched {launches}, expected "
+                             f"{expected}")
+    _check_step("ctf train step", readings, tf32, CTF_STEP_BOUNDS)
+    return launches
+
+
+def phase_ctf_train(card):
+    """The train command with the shipped ctf-l3 config and the s0-chairs
+    stage settings, batch 10 at 384x512."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    readings, problems = _train_command(
+        CTF_CFG, CTF_TRAIN_SHAPE, CTF_TRAIN_BATCH, CTF_TRAIN_PAIRS,
+        CTF_TRAIN_STEPS,
+        _strategy("s0-chairs", CTF_TRAIN_BATCH, "false", CTF_LR))
+    steps = readings["steps"]
+    expected = {"sample_window": CTF_ITERATIONS * steps,
+                "sample_window_bwd": CTF_ITERATIONS * steps,
+                "convex_combine_8x": steps, "convex_combine_8x_bwd": steps}
+    if readings["launches"] != expected:
+        problems.append(f"kernels launched {readings['launches']}, expected "
+                        f"{expected}")
+    if problems:
+        raise AssertionError("ctf train phase: " + "; ".join(problems))
+    emit(phase="ctf-train", model="raft+dicl/ctf-l3 (f32, live BN)",
+         iterations=list(CTF_LEVEL_ITERATIONS),
+         cudnn_tf32=torch.backends.cudnn.allow_tf32,
+         matmul_tf32=torch.backends.cuda.matmul.allow_tf32, card=card,
+         **readings)
+    return readings["launches"]
+
+
+def kernels_line(results):
+    """The four kernels with their checks, times and launches. ``launches``
+    is the count of this run's ctf-l3 ``main train`` (the main path);
+    ``launches_by_path`` has every path's count."""
+    raft_train = results["phase_train"]
+    paths = {
+        "raft_model": {"convex_combine_8x": results["phase_model"]},
+        "raft_serve": {"convex_combine_8x": results["phase_serve"]},
+        "raft_train_step": dict(zip(
+            ("convex_combine_8x", "convex_combine_8x_bwd"),
+            results["phase_train_step"])),
+        "raft_train": dict(zip(
+            ("convex_combine_8x", "convex_combine_8x_bwd"), raft_train)),
+        "ctf_model": results["phase_ctf_model"],
+        "ctf_serve": results["phase_ctf_serve"],
+        "ctf_train_step": results["phase_ctf_train_step"],
+        "ctf_train": results["phase_ctf_train"],
+    }
+
+    def launches(name):
+        return {path: counts[name] for path, counts in paths.items()
+                if counts.get(name)}
+
+    cases = results["phase_kernels"]
+    bwd_cases = results["phase_kernels_bwd"]
+    # the convex entries quote ctf-l3 training's case (f32 logits), the
+    # path whose launches they report, and raft/baseline training's beside
+    def case_at(cases, dtype, rows):
+        case = next(c for c in cases
+                    if c["dtype"] == dtype and c["rows"] == rows)
+        return {k: case[k] for k in ("dtype", "rows", "ms", "plain_ms",
+                                     "bound_ms", "bound_by")}
+
+    fwd_case = case_at(cases, "float32", CTF_TRAIN_M)
+    bwd_case = case_at(bwd_cases, "float32", CTF_TRAIN_M)
+    raft_shape = (f"bf16 logits, M={TRAIN_M} (raft/baseline training, "
+                  "batch 6 at 400x720, 12 iterations)")
+    raft_fwd = {**case_at(cases, "bfloat16", TRAIN_M), "shape": raft_shape}
+    raft_bwd = {**case_at(bwd_cases, "bfloat16", TRAIN_M), "shape": raft_shape}
+    convex_src = "raft_meets_dicl_tpu_torch/csrc/convex_combine_8x.cu"
+    convex_shape = (f"f32 logits, M={CTF_TRAIN_M} (ctf-l3 training, batch "
+                    "10 at 384x512, the finest level's 3 iterations)")
+    sw_cases = results["phase_sw_kernels"]
+    sw = sw_cases[SW_MAIN_CASE]
+    sw_src = "raft_meets_dicl_tpu_torch/csrc/sample_window.cu"
+    sw_shape = (f"{sw['dtype']} f2 {sw['f2']}, coords {sw['coords']}, "
+                f"radius {sw['radius']} (ctf-l3 training, level 3 of batch "
+                "10 at 384x512)")
+    ctf_train = results["phase_ctf_train"]
+    return [{
+        "name": "convex_combine_8x",
+        "route": "cuda",
+        "source": convex_src,
+        "replaces": "raft_meets_dicl_tpu/ops/pallas.py:110",
+        "launches": ctf_train["convex_combine_8x"],
+        "launches_by_path": launches("convex_combine_8x"),
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "ms": fwd_case["ms"],
+        "plain_ms": fwd_case["plain_ms"],
+        "bound_ms": fwd_case["bound_ms"],
+        "bound_by": fwd_case["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the neighbour "
+                        "softmax + convex combine",
+        "tolerance": "max |diff| <= 1e-5",
+        "shape": convex_shape,
+        "raft_train": raft_fwd,
+        "cases": cases,
+    }, {
+        "name": "convex_combine_8x_bwd",
+        "route": "cuda",
+        "source": convex_src,
+        "replaces": "raft_meets_dicl_tpu/ops/pallas.py:136",
+        "launches": ctf_train["convex_combine_8x_bwd"],
+        "launches_by_path": launches("convex_combine_8x_bwd"),
+        "max_abs_err": max(c["max_abs_err"] for c in bwd_cases),
+        "ms": bwd_case["ms"],
+        "plain_ms": bwd_case["plain_ms"],
+        "bound_ms": bwd_case["bound_ms"],
+        "bound_by": bwd_case["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the backward of "
+                        "the neighbour softmax + convex combine",
+        "tolerance": "float32 outputs max |diff| <= 1e-5; bf16 dlogits "
+                     "|diff| <= 1e-5 + one bf16 ulp of the larger value",
+        "shape": convex_shape,
+        "raft_train": raft_bwd,
+        "cases": bwd_cases,
+    }, {
+        "name": "sample_window",
+        "route": "cuda",
+        "source": sw_src,
+        "replaces": "raft_meets_dicl_tpu/ops/pallas.py:1004",
+        "launches": ctf_train["sample_window"],
+        "launches_by_path": launches("sample_window"),
+        "max_abs_err": max(c["max_abs_err"] for c in sw_cases),
+        "max_err_over_bound": max(c["err_over_bound"] for c in sw_cases),
+        "ms": sw["ms"],
+        "plain_ms": sw["plain_ms"],
+        "bound_ms": sw["bound_ms"],
+        "bound_by": sw["bound_by"],
+        "library_ms": sw["library_ms"],
+        "library_note": "F.grid_sample (bilinear, zeros, align_corners) "
+                        "over the (B, K*K*H, W) grid of window positions",
+        "tolerance": "float32 |diff| <= 1e-5; bf16 |diff| <= 1e-5 + one "
+                     "bf16 ulp of the larger value",
+        "shape": sw_shape,
+        "cases": sw_cases,
+    }, {
+        "name": "sample_window_bwd",
+        "route": "cuda",
+        "source": sw_src,
+        "replaces": "raft_meets_dicl_tpu/ops/pallas.py:1039",
+        "launches": ctf_train["sample_window_bwd"],
+        "launches_by_path": launches("sample_window_bwd"),
+        "max_abs_err": max(c["bwd_max_abs_err"] for c in sw_cases),
+        "max_err_over_bound": max(c["bwd_err_over_bound"] for c in sw_cases),
+        "ms": sw["bwd_ms"],
+        "plain_ms": sw["plain_bwd_ms"],
+        "bound_ms": sw["bwd_bound_ms"],
+        "bound_by": sw["bwd_bound_by"],
+        "library_ms": sw["library_bwd_ms"],
+        "library_note": "backward of F.grid_sample over the same grid "
+                        "(input gradient only)",
+        "tolerance": "|diff| <= 1e-5 + 2^-13 * S, S = the plain backward of "
+                     "|dout| (float32 summation order); bf16 adds one bf16 "
+                     "ulp of the larger value",
+        "shape": sw_shape,
+        "cases": sw_cases,
+    }]
 
 
 def main():
@@ -702,58 +1340,32 @@ def main():
 
     card = phase_environment()
     phase_build()
-    cases = phase_kernels(card)
-    phase_model(card)
-    serve_launches = phase_serve(card)
-    bwd_cases = phase_kernels_bwd(card)
-    phase_train_step(card)
-    train_fwd, train_bwd = phase_train(card)
 
-    fwd_case = next(c for c in cases
-                    if c["dtype"] == "bfloat16" and c["rows"] == TRAIN_M)
-    bwd_case = next(c for c in bwd_cases
-                    if c["dtype"] == "bfloat16" and c["rows"] == TRAIN_M)
-    source = "raft_meets_dicl_tpu_torch/csrc/convex_combine_8x.cu"
-    shape = (f"bf16 logits, M={TRAIN_M} (training, batch 6 at 400x720, "
-             "12 iterations)")
-    print(json.dumps({"kernels": [{
-        "name": "convex_combine_8x",
-        "route": "cuda",
-        "source": source,
-        "replaces": "raft_meets_dicl_tpu/ops/pallas.py:110",
-        "launches": train_fwd,
-        "launches_by_path": {"serve": serve_launches, "train": train_fwd},
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": fwd_case["ms"],
-        "plain_ms": fwd_case["plain_ms"],
-        "bound_ms": fwd_case["bound_ms"],
-        "bound_by": fwd_case["bound_by"],
-        "library_ms": None,
-        "library_note": "no single PyTorch call computes the neighbour "
-                        "softmax + convex combine",
-        "tolerance": "max |diff| <= 1e-5",
-        "shape": shape,
-        "cases": cases,
-    }, {
-        "name": "convex_combine_8x_bwd",
-        "route": "cuda",
-        "source": source,
-        "replaces": "raft_meets_dicl_tpu/ops/pallas.py:136",
-        "launches": train_bwd,
-        "launches_by_path": {"train": train_bwd},
-        "max_abs_err": max(c["max_abs_err"] for c in bwd_cases),
-        "ms": bwd_case["ms"],
-        "plain_ms": bwd_case["plain_ms"],
-        "bound_ms": bwd_case["bound_ms"],
-        "bound_by": bwd_case["bound_by"],
-        "library_ms": None,
-        "library_note": "no single PyTorch call computes the backward of "
-                        "the neighbour softmax + convex combine",
-        "tolerance": "float32 outputs max |diff| <= 1e-5; bf16 dlogits "
-                     "|diff| <= 1e-5 + one bf16 ulp of the larger value",
-        "shape": shape,
-        "cases": bwd_cases,
-    }]}), flush=True)
+    # every phase runs even after another failed, so one run reads them
+    # all; any failure still ends the run without a result line
+    failed = []
+    results = {}
+
+    def run(phase):
+        t0 = time.perf_counter()
+        try:
+            results[phase.__name__] = phase(card)
+        except Exception:
+            traceback.print_exc()
+            failed.append(phase.__name__)
+        emit(phase="timing", of=phase.__name__.removeprefix("phase_"),
+             seconds=round(time.perf_counter() - t0, 3))
+
+    for phase in (phase_kernels, phase_model, phase_serve, phase_kernels_bwd,
+                  phase_train_step, phase_train, phase_sw_kernels,
+                  phase_ctf_model, phase_ctf_serve, phase_ctf_train_step,
+                  phase_ctf_train):
+        run(phase)
+    if failed:
+        print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
+        return 1
+
+    print(json.dumps({"kernels": kernels_line(results)}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

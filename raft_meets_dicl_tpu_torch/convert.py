@@ -1,19 +1,25 @@
-"""Weight bridge: the JAX package's ``raft/baseline`` variables -> this
-package's ``state_dict``.
+"""Weight bridge: the JAX package's variables -> this package's
+``state_dict``, for ``raft/baseline`` and the ``raft+dicl`` coarse-to-fine
+models.
 
 Input is the JAX variables tree as nested mappings of numpy arrays (for
 example ``jax.tree.map(np.asarray, model.init(...))``). Flax module paths
-map onto torch RAFT module names by the same rules as
-``scripts/chkpt_convert.py`` (its ``_raft_rules``), kept as an own copy
-here: conv kernels HWIO -> OIHW, batch-norm ``scale``/``bias`` ->
-``weight``/``bias``, ``batch_stats`` ``mean``/``var`` ->
-``running_mean``/``running_var``.
+map onto the reference torch module names by the same rules as
+``scripts/chkpt_convert.py`` (its ``_raft_rules`` and ``_ctf_rules`` with
+``_pyramid_rules``, ``_cmod_rules``, ``_update_block_rules``), kept as an
+own copy here: conv kernels HWIO -> OIHW, transposed-conv kernels (flax
+``ConvTranspose``) to torch's (in, out, kh, kw) with the spatial flip that
+makes torch's k4/s2/p1 geometry equal flax's 'SAME', batch-norm
+``scale``/``bias`` -> ``weight``/``bias``, ``batch_stats`` ``mean``/``var``
+-> ``running_mean``/``running_var``.
 """
 
 from collections.abc import Mapping
 
 import numpy as np
 import torch
+
+from .models.impls.raft_dicl_ctf import RaftPlusDiclCtfModule
 
 
 def _stem_rules(src):
@@ -24,17 +30,39 @@ def _stem_rules(src):
     }
     for i in range(6):
         tgt = f"{src}.layer{i // 2 + 1}.{i % 2}"
-        rules[f"ResidualBlock_{i}.Conv_0"] = f"{tgt}.conv1"
-        rules[f"ResidualBlock_{i}.Conv_1"] = f"{tgt}.conv2"
-        rules[f"ResidualBlock_{i}.Conv_2"] = f"{tgt}.downsample.0"
-        rules[f"ResidualBlock_{i}.Norm2d_0.BatchNorm_0"] = f"{tgt}.norm1"
-        rules[f"ResidualBlock_{i}.Norm2d_1.BatchNorm_0"] = f"{tgt}.norm2"
-        rules[f"ResidualBlock_{i}.Norm2d_2.BatchNorm_0"] = f"{tgt}.downsample.1"
+        rules |= _residual_rules(f"ResidualBlock_{i}", tgt)
     return rules
 
 
-def raft_rules():
-    """flax module path (dotted) -> torch module path for raft/baseline."""
+def _residual_rules(flax_block, tgt):
+    return {
+        f"{flax_block}.Conv_0": f"{tgt}.conv1",
+        f"{flax_block}.Conv_1": f"{tgt}.conv2",
+        f"{flax_block}.Conv_2": f"{tgt}.downsample.0",
+        f"{flax_block}.Norm2d_0.BatchNorm_0": f"{tgt}.norm1",
+        f"{flax_block}.Norm2d_1.BatchNorm_0": f"{tgt}.norm2",
+        f"{flax_block}.Norm2d_2.BatchNorm_0": f"{tgt}.downsample.1",
+    }
+
+
+def _update_block_rules(flax_path, torch_path):
+    """Rules for one BasicUpdateBlock."""
+    rules = {}
+    enc = f"{flax_path}.BasicMotionEncoder_0"
+    for i, name in enumerate(("convc1", "convc2", "convf1", "convf2", "conv")):
+        rules[f"{enc}.Conv_{i}"] = f"{torch_path}.encoder.{name}"
+    gru = f"{flax_path}.SepConvGru_0"
+    for i, name in enumerate(("convz1", "convr1", "convq1",
+                              "convz2", "convr2", "convq2")):
+        rules[f"{gru}.Conv_{i}"] = f"{torch_path}.gru.{name}"
+    rules[f"{flax_path}.FlowHead_0.Conv_0"] = f"{torch_path}.flow_head.conv1"
+    rules[f"{flax_path}.FlowHead_0.Conv_1"] = f"{torch_path}.flow_head.conv2"
+    return rules
+
+
+def raft_rules(corr_levels=4):
+    """flax module path (dotted) -> torch module path for raft/baseline
+    (with the per-level DAPs of ``corr-reg-type: softargmax+dap``)."""
     rules = {}
     for flax_enc, torch_enc in (("FeatureEncoderS3_0", "fnet"),
                                 ("FeatureEncoderS3_1", "cnet")):
@@ -42,20 +70,106 @@ def raft_rules():
             rules[f"{flax_enc}._Stem_0.{flax_frag}"] = torch_frag
         rules[f"{flax_enc}.Conv_0"] = f"{torch_enc}.conv2"
 
-    block = "ScanCheckpoint_RaftStep_0.BasicUpdateBlock_0"
-    for i, name in enumerate(("convc1", "convc2", "convf1", "convf2", "conv")):
-        rules[f"{block}.BasicMotionEncoder_0.Conv_{i}"] = \
-            f"update_block.encoder.{name}"
-    for i, name in enumerate(("convz1", "convr1", "convq1",
-                              "convz2", "convr2", "convq2")):
-        rules[f"{block}.SepConvGru_0.Conv_{i}"] = f"update_block.gru.{name}"
-    rules[f"{block}.FlowHead_0.Conv_0"] = "update_block.flow_head.conv1"
-    rules[f"{block}.FlowHead_0.Conv_1"] = "update_block.flow_head.conv2"
+    step = "ScanCheckpoint_RaftStep_0"
+    rules |= _update_block_rules(f"{step}.BasicUpdateBlock_0", "update_block")
+    for i in range(corr_levels):
+        rules[f"{step}.SoftArgMaxFlowRegression_0."
+              f"DisplacementAwareProjection_{i}.Conv_0"] = \
+            f"corr_reg.dap.{i}.conv1"
 
     # the upsampling network runs outside the scan (batched application)
     rules["Up8Network_0.Conv_0"] = "update_block.mask.0"
     rules["Up8Network_0.Conv_1"] = "update_block.mask.2"
     return rules
+
+
+def _pyramid_rules(flax_enc, torch_enc, levels):
+    """Rules for one FeatureEncoderPyramid (stem layer1-3, heads
+    out3..out{levels+2}, inter-level stages layer4..)."""
+    rules = {}
+    for frag, tgt in _stem_rules(torch_enc).items():
+        rules[f"{flax_enc}._Stem_0.{frag}"] = tgt
+
+    for i in range(levels):
+        head = f"{flax_enc}.EncoderOutputNet_{i}"
+        out = f"{torch_enc}.out{i + 3}"
+        rules[f"{head}.Conv_0"] = f"{out}.conv1"
+        rules[f"{head}.Norm2d_0.BatchNorm_0"] = f"{out}.norm1"
+        rules[f"{head}.Conv_1"] = f"{out}.conv2"
+
+    for j in range(levels - 1):
+        for k in range(2):
+            rules |= _residual_rules(f"{flax_enc}.ResidualBlock_{2 * j + k}",
+                                     f"{torch_enc}.layer{4 + j}.{k}")
+    return rules
+
+
+def _cmod_rules(flax_path, torch_path):
+    """Rules for one DICL CorrelationModule (MatchingNet hourglass + DAP)."""
+    rules = {}
+    mnet = f"{flax_path}.MatchingNet_0"
+    for i in range(4):
+        rules[f"{mnet}.ConvBlock_{i}.Conv_0"] = f"{torch_path}.mnet.{i}.0"
+        rules[f"{mnet}.ConvBlock_{i}.Norm2d_0.BatchNorm_0"] = \
+            f"{torch_path}.mnet.{i}.1"
+    rules[f"{mnet}.ConvBlockTransposed_0.ConvTranspose_0"] = \
+        f"{torch_path}.mnet.4.0"
+    rules[f"{mnet}.ConvBlockTransposed_0.Norm2d_0.BatchNorm_0"] = \
+        f"{torch_path}.mnet.4.1"
+    rules[f"{mnet}.Conv_0"] = f"{torch_path}.mnet.5"
+    rules[f"{flax_path}.DisplacementAwareProjection_0.Conv_0"] = \
+        f"{torch_path}.dap.conv1"
+    return rules
+
+
+def ctf_rules(levels, share_dicl, share_rnn, upsample_hidden):
+    """flax module path -> torch module path for raft+dicl/ctf-l*.
+
+    Flax submodule suffixes follow creation order, coarse to fine over the
+    level ids ``levels + 2 .. 3``: suffix i is torch ``corr_{lvl}`` /
+    ``update_block_{lvl}`` of the i-th level id.
+    """
+    level_ids = tuple(range(levels + 2, 2, -1))
+    rules = {}
+
+    rules |= _pyramid_rules("FeatureEncoderPyramid_0", "fnet", levels)
+    rules |= _pyramid_rules("FeatureEncoderPyramid_1", "cnet", levels)
+
+    for i, lvl in enumerate(level_ids):
+        suffix = 0 if share_dicl else i
+        rules |= _cmod_rules(f"CorrelationModule_{suffix}",
+                             "corr" if share_dicl else f"corr_{lvl}")
+        # corr-reg-type softargmax+dap: the readout's own DAP
+        rules[f"SoftArgMaxFlowRegressionWithDap_{suffix}."
+              "DisplacementAwareProjection_0.Conv_0"] = \
+            ("flow_reg" if share_dicl else f"flow_reg_{lvl}") + ".dap.conv1"
+        rules |= _update_block_rules(
+            f"BasicUpdateBlock_{0 if share_rnn else i}",
+            "update_block" if share_rnn else f"update_block_{lvl}")
+
+    for i, lvl in enumerate(level_ids[1:]):
+        flax_h = 0 if share_rnn else i
+        # the reference l2 variant has a single transition and names its
+        # upsampler 'upnet_h' regardless of sharing
+        torch_h = "upnet_h" if share_rnn or levels == 2 else f"upnet_h_{lvl}"
+        if upsample_hidden == "bilinear":
+            rules[f"HUpBilinear_{flax_h}.Conv_0"] = f"{torch_h}.conv1"
+        elif upsample_hidden == "crossattn":
+            for j, name in enumerate(("conv_q", "conv_k", "conv_v_prev",
+                                      "conv_v_init", "conv_out")):
+                rules[f"HUpCrossAttn_{flax_h}.Conv_{j}"] = f"{torch_h}.{name}"
+
+    rules["Up8Network_0.Conv_0"] = "upnet.conv1"
+    rules["Up8Network_0.Conv_1"] = "upnet.conv2"
+    return rules
+
+
+def rules_for(module):
+    """The rules for this package's model ``module``."""
+    if isinstance(module, RaftPlusDiclCtfModule):
+        return ctf_rules(module.levels, module.share_dicl, module.share_rnn,
+                         module.upsample_hidden)
+    return raft_rules(module.corr_levels)
 
 
 def _named_leaves(tree, prefix=()):
@@ -71,14 +185,15 @@ _PARAM_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
 
-def jax_variables_to_state_dict(variables):
-    """Map a raft/baseline JAX variables tree onto this package's
-    ``state_dict`` (float32 CPU tensors, batch-norm counters zero).
+def jax_variables_to_state_dict(variables, rules=None):
+    """Map a JAX variables tree onto this package's ``state_dict`` (float32
+    CPU tensors, batch-norm counters zero) by ``rules`` (default: the
+    raft/baseline rules).
 
     Raises ``KeyError`` for a collection, module path or leaf the rules
     do not know, and ``ValueError`` if two leaves map onto one key.
     """
-    rules = raft_rules()
+    rules = raft_rules() if rules is None else rules
     state = {}
     for (col, *path), leaf in _named_leaves(variables):
         module_path, leaf_name = ".".join(path[:-1]), path[-1]
@@ -89,7 +204,12 @@ def jax_variables_to_state_dict(variables):
 
         value = np.asarray(leaf, np.float32)
         if col == "params" and leaf_name in _PARAM_LEAVES:
-            if leaf_name == "kernel":
+            if leaf_name == "kernel" and path[-2].startswith("ConvTranspose"):
+                # flax (kh, kw, in, out), transpose_kernel=False -> torch
+                # (in, out, kh, kw), spatially flipped (the inverse of
+                # chkpt_convert's _conv_t)
+                value = np.transpose(value, (2, 3, 0, 1))[:, :, ::-1, ::-1]
+            elif leaf_name == "kernel":
                 value = np.transpose(value, (3, 2, 0, 1))  # HWIO -> OIHW
             key = f"{torch_mod}.{_PARAM_LEAVES[leaf_name]}"
         elif col == "batch_stats" and leaf_name in _STAT_LEAVES:
@@ -107,6 +227,6 @@ def jax_variables_to_state_dict(variables):
 def load_jax_variables(module, variables):
     """Load a JAX variables tree into ``module`` (strict: every parameter
     and buffer must be covered, nothing left over)."""
-    state = jax_variables_to_state_dict(variables)
+    state = jax_variables_to_state_dict(variables, rules_for(module))
     module.load_state_dict(state, strict=True)
     return module

@@ -1,3 +1,4 @@
-from . import blocks, encoders, grid, norm, util
+from . import adapters, blocks, corr, encoders, grid, hsup, loss, norm, util
 
-__all__ = ["blocks", "encoders", "grid", "norm", "util"]
+__all__ = ["adapters", "blocks", "corr", "encoders", "grid", "hsup", "loss",
+           "norm", "util"]

@@ -1,0 +1,3 @@
+from . import mlseq
+
+__all__ = ["mlseq"]

@@ -1,3 +1,3 @@
-from . import raft
+from . import dicl, raft
 
-__all__ = ["raft"]
+__all__ = ["dicl", "raft"]

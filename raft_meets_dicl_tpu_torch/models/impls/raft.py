@@ -34,6 +34,7 @@ from ...ops.corr import (
 )
 from ...ops.upsample import convex_upsample_8x, interpolate_bilinear
 from ..common import encoders
+from ..common.blocks.dicl import DisplacementAwareProjection
 from ..common.grid import coordinate_grid
 from ..common.util import Conv2d, init_parameters
 from ..config import register_loss, register_model
@@ -52,14 +53,21 @@ class SoftArgMaxFlowRegression(nn.Module):
     """Cost -> flow readout: softmax-weighted displacement sum per level.
 
     Takes the per-level (B, H, W, K_dy, K_dx) windows; returns a list of
-    per-level flow deltas (B, H, W, 2), scaled 2^level.
+    per-level flow deltas (B, H, W, 2), scaled 2^level. With ``dap`` each
+    level's (dx, dy) window first goes through its own identity-initialized
+    displacement-aware projection (``dap.<level>``).
     """
 
-    def __init__(self, num_levels, radius, temperature=1.0):
+    def __init__(self, num_levels, radius, temperature=1.0, dap=False):
         super().__init__()
         self.num_levels = num_levels
         self.radius = radius
         self.temperature = temperature
+        if dap:
+            self.dap = nn.ModuleList(DisplacementAwareProjection(radius)
+                                     for _ in range(num_levels))
+        else:
+            self.dap = None
 
     def forward(self, corr):
         b, h, w = corr[0].shape[:3]
@@ -69,7 +77,10 @@ class SoftArgMaxFlowRegression(nn.Module):
         out = []
         for lvl in range(self.num_levels):
             # per-level windows are (dy, dx); window_delta is dx-major
-            score = corr[lvl].transpose(3, 4).reshape(b, h, w, k * k)
+            score = corr[lvl].transpose(3, 4)
+            if self.dap is not None:
+                score = self.dap[lvl](score)
+            score = score.reshape(b, h, w, k * k)
             score = torch.softmax(score / self.temperature, dim=-1)
             out.append(torch.einsum("bhwk,kc->bhwc", score,
                                     delta.reshape(k * k, 2) * 2**lvl))
@@ -78,11 +89,11 @@ class SoftArgMaxFlowRegression(nn.Module):
 
 def make_flow_regression(type, num_levels, radius, **kwargs):
     if type == "softargmax":
-        return SoftArgMaxFlowRegression(num_levels, radius, **kwargs)
+        return SoftArgMaxFlowRegression(num_levels, radius, dap=False,
+                                        **kwargs)
     if type == "softargmax+dap":
-        raise NotImplementedError(
-            "corr-reg-type 'softargmax+dap' is not ported yet (ROADMAP "
-            "queue A, raft+dicl slice)")
+        return SoftArgMaxFlowRegression(num_levels, radius, dap=True,
+                                        **kwargs)
     raise ValueError(f"unknown correlation module type '{type}'")
 
 
@@ -178,10 +189,9 @@ class Up8Network(nn.Sequential):
         return convex_upsample_8x(flow, _nhwc(x), temperature=self.temperature)
 
 
-class BasicUpdateBlock(nn.Module):
-    """One recurrent update: motion encoding + GRU + flow head. The
-    convex-upsampling head (``mask``) lives here too, as in torch RAFT,
-    but runs once per forward over all iterations (``RaftModule``)."""
+class UpdateBlock(nn.Module):
+    """One recurrent update: motion encoding + GRU + flow head (the JAX
+    ``BasicUpdateBlock``)."""
 
     def __init__(self, corr_planes, hidden_dim=128, context_dim=128,
                  dtype=None):
@@ -189,7 +199,6 @@ class BasicUpdateBlock(nn.Module):
         self.encoder = BasicMotionEncoder(corr_planes, dtype=dtype)
         self.gru = SepConvGru(hidden_dim, context_dim + 128, dtype=dtype)
         self.flow_head = FlowHead(hidden_dim, 256, dtype=dtype)
-        self.mask = Up8Network(hidden_dim, dtype=dtype)
 
     def forward(self, h, x, corr, flow):
         """h, x: NCHW; corr: (B, L*K*K, H, W) flat lookup; flow: NCHW f32.
@@ -198,6 +207,17 @@ class BasicUpdateBlock(nn.Module):
         x = torch.cat((x, m.to(x.dtype)), dim=1)
         h = self.gru(h, x)
         return h, self.flow_head(h)
+
+
+class BasicUpdateBlock(UpdateBlock):
+    """torch RAFT's update block: the recurrent update with the
+    convex-upsampling head (``mask``) beside it; the head runs once per
+    forward over all iterations (``RaftModule``)."""
+
+    def __init__(self, corr_planes, hidden_dim=128, context_dim=128,
+                 dtype=None):
+        super().__init__(corr_planes, hidden_dim, context_dim, dtype)
+        self.mask = Up8Network(hidden_dim, dtype=dtype)
 
 
 class RaftModule(nn.Module):

@@ -1,7 +1,7 @@
 """Compute layer: plain-torch correlation/upsampling ops and the
-hand-written CUDA kernels (``convex``) with their build/load module
-(``cuda_build``)."""
+hand-written CUDA kernels (``convex``, ``sample``) with their build/load
+module (``cuda_build``)."""
 
-from . import convex, corr, cuda_build, upsample
+from . import convex, corr, cuda_build, sample, upsample
 
-__all__ = ["convex", "corr", "cuda_build", "upsample"]
+__all__ = ["convex", "corr", "cuda_build", "sample", "upsample"]

@@ -50,3 +50,11 @@ def interpolate_bilinear(x, size):
     y = F.interpolate(x.permute(0, 3, 1, 2).float(), size=tuple(size),
                       mode="bilinear", align_corners=True)
     return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+def upsample_flow_2x(flow):
+    """Double a (B, H, W, 2) flow's resolution (align_corners bilinear) and
+    its displacement values: the inter-level step of the coarse-to-fine
+    models."""
+    b, h, w, _ = flow.shape
+    return 2.0 * interpolate_bilinear(flow, (2 * h, 2 * w))
