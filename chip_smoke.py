@@ -7,8 +7,8 @@ Drives ``raft_meets_dicl_tpu_torch`` — never JAX or the JAX package — on
 the card and fails (non-zero exit, no result line) on any fault:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
-2. build: every CUDA kernel of the paths (``convex_combine_8x`` and
-   ``sample_window``, forward and backward, one source each), compiled
+2. build: every CUDA kernel of the paths (``convex_combine_8x``,
+   ``sample_window`` and ``windowed_corr``, one source each), compiled
    with one ``nvcc`` per source, all started together, for ``sm_90a`` from
    ``raft_meets_dicl_tpu_torch/csrc``; ptxas registers and spills printed;
 3. kernels: the forward against its plain PyTorch version on the card, at
@@ -66,17 +66,46 @@ the card and fails (non-zero exit, no result line) on any fault:
    s0-chairs stage settings (live batch norm, AdamW, one-cycle, clip),
    batch 10 at 384x512, 8 steps: every loss finite, 10 + 10 sampler and
    1 + 1 combine launches per step; median step ms, pairs/s, peak memory
-   and whether cuDNN TF32 was on printed.
+   and whether cuDNN TF32 was on printed;
+14. windowed-correlation kernels: ``windowed_corr_pyramid`` forward, df1
+   and df2 (``csrc/windowed_corr.cu``) against the plain version and its
+   autograd on the card, TF32 off, at raft/fs's shapes (level 0 of the
+   1080x1920 serve bucket at batch 2 and of the 2560x1072 train crop, bf16;
+   all 4 levels at 368x496 f32 and at 2560x1072 bf16; two ragged cases),
+   far windows exact zeros; each timed beside the plain version and its
+   bound;
+15. fs model: ``raft/fs`` in float32, full width, 12 iterations, at
+   1x368x496, card vs CPU from one seeded init at three budgets
+   (``RMD_FS_VOLUME_GIB`` 0: every level windowed; 0.01: two; the
+   default: none), each forward launching the kernel 12 times where a
+   level is windowed; the same forward with TF32 must break the bound;
+16. fs serve: ``main serve`` with the shipped raft/fs config (bf16
+   policy), buckets 1080x1920 and 448x1024, batch 2, 16 requests: the
+   kernel launches 12 times per dispatched 1080p batch (warm-up included)
+   and never at 448x1024, as ``volume_level_split`` decides;
+17. fs train step: one float32 step of full-width raft/fs at 2x128x192,
+   frozen batch norm, the hd1k-1080p stage's AdamW (eps 1e-3) and clip,
+   card vs CPU, with every level windowed (12 forward, 12 df1 and 48 df2
+   launches) and again with every level on volumes (no windowed launch),
+   both against the same bounds; the same steps with TF32 must break each
+   bound;
+18. fs train: ``main train`` with the shipped raft/fs config and the
+   hd1k-1080p stage's optimizer, schedule and clip, batch 1 at 2560x1072,
+   8 steps, default budget (level 0 windowed): every loss finite, 12 + 12
+   + 12 windowed-correlation launches per step.
 
 Each phase prints one JSON line (and a ``timing`` line); every phase runs
 even after another failed, and a failure ends the run with exit code 1
-and no result line. Then the ``kernels`` line (the four kernels, each with
-``launches`` from the ctf-l3 ``main train`` run and ``launches_by_path``),
+and no result line. Then the ``kernels`` line (the seven kernels, each
+with ``launches`` from its slice's ``main train`` run and
+``launches_by_path``),
 the card's ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 """
 
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -160,7 +189,7 @@ RAFT_STEP_BOUNDS = {"loss": STEP_LOSS_REL, "gradient": STEP_GRAD_REL_L2,
                     "update": STEP_UPDATE_REL_L2, "params": STEP_PARAM_MAX_ABS}
 
 # every kernel source, built by one nvcc each
-KERNEL_SOURCES = ("convex_combine_8x", "sample_window")
+KERNEL_SOURCES = ("convex_combine_8x", "sample_window", "windowed_corr")
 
 # -- raft+dicl/ctf-l3: the shipped config (f32, radius 4, 32 corr channels),
 # the default iterations per level, coarse to fine
@@ -224,6 +253,76 @@ SW_BWD_OPS_PER_VALUE = SW_OPS_PER_VALUE + (SW_K + 1) ** 2 / (SW_K * SW_K)
 # terms per element; these inputs give about 400 (some 100 windows cover
 # each tap, each through up to 4 lerp weights)
 SW_BWD_ORDER_REL = 2.0 ** -13
+
+# -- raft/fs: the shipped config (bf16 policy, 4 levels, radius 4, 256
+# corr channels, 12 iterations); the windowed-correlation kernels
+FS_CFG = ROOT / "cfg" / "model" / "raft-fs.yaml"
+FS_RADIUS = 4
+FS_ITERATIONS = 12
+FS_LEVELS = 4
+FS_CHANNELS = 256
+# peak rates by input dtype for the windowed correlation's bound: a bf16
+# dot could run on the tensor cores (989 TFLOP/s dense); a float32 one
+# could not without TF32, which changes the result (67 TFLOP/s)
+PEAK_BF16_OPS_S = 989e12
+# operations per position and level: 100 taps x C multiply-adds
+WCP_TAPS = (2 * FS_RADIUS + 2) ** 2
+# kernel cases (b, h, w at the 1/8 grid; levels windowed; channels): the
+# 1080x1920 serve bucket at batch 2 and the 2560x1072 train crop at batch
+# 1 (level 0 alone, the default budget's split), both levels-all forms
+# (budget 0), and two ragged cases (odd sizes, other vector widths) with
+# far out-of-bounds centres
+WCP_CASES = (
+    {"name": "serve 1080x1920 b2, level 0", "dtype": "bfloat16",
+     "shape": (2, 135, 240), "levels": 1, "c": FS_CHANNELS},
+    {"name": "train 2560x1072 b1, level 0", "dtype": "bfloat16",
+     "shape": (1, 134, 320), "levels": 1, "c": FS_CHANNELS},
+    {"name": "all levels 368x496 b1", "dtype": "float32",
+     "shape": (1, 46, 62), "levels": 4, "c": FS_CHANNELS},
+    {"name": "all levels 2560x1072 b1", "dtype": "bfloat16",
+     "shape": (1, 134, 320), "levels": 4, "c": FS_CHANNELS},
+    {"name": "ragged", "dtype": "float32", "shape": (2, 13, 17), "levels": 2,
+     "c": 96},
+    {"name": "ragged", "dtype": "bfloat16", "shape": (2, 11, 9), "levels": 2,
+     "c": 64},
+)
+WCP_MAIN_CASE = 1     # the kernels line quotes the 2560x1072 training case
+# tolerance: |kernel - plain| <= 1e-5 max|plain| + 2^-13 S, S the plain
+# function of |f1| and |f2_l| (backward: of |dout| too); the unnormalized
+# dots reach |f1| |f2| at C = 256, so the bound scales with S
+WCP_ORDER_REL = 2.0 ** -13
+# raft/fs model phase: 1x368x496 in float32; budgets (GiB) and the split
+# volume_level_split gives at its 46x62 grid (f32 volumes 32.5 / 8.1 / 1.9
+# / 0.4 MB per level)
+FS_MODEL_SHAPE = (368, 496)
+# final flow, card vs CPU in float32, relative to the flow's largest
+# |value|. raft's 1e-3 px does not hold here: the unnormalized correlation
+# (|f1| |f2| at C = 256) drives the recurrence harder, and an H100 run
+# read 3.9e-3 to 5.3e-3 px on 101.6 px flows (5.2e-5) at all three
+# budgets, the volume-only one (no kernel) included; TF32 read 2.8-3.0 px
+# (see PERF.md). 2e-4 is 3.8x the reading
+FS_MODEL_REL = 2e-4
+FS_MODEL_BUDGETS = (("0", 4), ("0.01", 2), (None, 0))
+FS_SERVE_BUCKETS = ((1080, 1920), (448, 1024))
+FS_SERVE_SPLITS = {"1080x1920": 1, "448x1024": 0}   # n_windowed at batch 2
+FS_SERVE_BATCH = 2
+FS_STEP_SHAPE = (2, 128, 192)
+FS_LR = 1.25e-4               # the hd1k-1080p stage's lr and max_lr
+FS_WEIGHT_DECAY = 1e-5
+# The raft/fs step, card vs CPU in float32. An H100 run read, every level
+# windowed: loss 4.6e-7, worst gradient 6.9e-3 (fnet's 1/4 stage), median
+# 7.1e-4, update 1.4e-3, params 1.1e-6: 4-70x raft's readings, the
+# unnormalized correlation's sensitivity; TF32 read 5.0e-4, 0.36, 2.1e-2,
+# 8.1e-2, 5.0e-5. Each bound is ~4x its reading. The same step with every
+# level on volumes (no windowed-correlation kernel) is held to the same
+# bounds, and its readings are in PERF.md
+FS_STEP_BOUNDS = {"loss": 1e-5, "gradient": 3e-2, "median gradient": 3e-3,
+                  "update": 6e-3, "params": 5e-6}
+FS_TRAIN_SHAPE = (1072, 2560)
+FS_TRAIN_BATCH = 1
+FS_TRAIN_PAIRS = 8
+FS_TRAIN_STEPS = 8
+
 
 def emit(**fields):
     print(json.dumps(fields), flush=True)
@@ -593,24 +692,37 @@ def _step_problems(r, bounds):
 
 
 def _zero_counts():
-    from raft_meets_dicl_tpu_torch.ops import convex, sample
+    from raft_meets_dicl_tpu_torch.ops import convex, sample, windowed
 
     convex.launches = convex.bwd_launches = 0
     sample.launches = sample.bwd_launches = 0
+    windowed.launches = windowed.df1_launches = windowed.df2_launches = 0
 
 
 def _counts():
     """Every kernel's launch count, by the name in the kernels line."""
-    from raft_meets_dicl_tpu_torch.ops import convex, sample
+    from raft_meets_dicl_tpu_torch.ops import convex, sample, windowed
 
     return {"convex_combine_8x": convex.launches,
             "convex_combine_8x_bwd": convex.bwd_launches,
             "sample_window": sample.launches,
-            "sample_window_bwd": sample.bwd_launches}
+            "sample_window_bwd": sample.bwd_launches,
+            "windowed_corr_pyramid": windowed.launches,
+            "windowed_corr_pyramid_df1": windowed.df1_launches,
+            "windowed_corr_pyramid_df2": windowed.df2_launches}
 
 
-def _step_card_vs_cpu(load_spec, shape, lr, frozen_bn, seed):
-    """One float32 train step (AdamW at weight decay 1e-4 and eps
+def _expect(**launches):
+    """Every kernel's expected launch count: ``launches``, else 0."""
+    names = ("convex_combine_8x", "convex_combine_8x_bwd", "sample_window",
+             "sample_window_bwd", "windowed_corr_pyramid",
+             "windowed_corr_pyramid_df1", "windowed_corr_pyramid_df2")
+    return {name: launches.get(name, 0) for name in names}
+
+
+def _step_card_vs_cpu(load_spec, shape, lr, frozen_bn, seed,
+                      weight_decay=1e-4):
+    """One float32 train step (AdamW at ``weight_decay`` and eps
     STEP_EPS, clip norm 1.0) of the model ``load_spec()`` builds, on the
     card with TF32 off, on the card with TF32 convolutions and matmuls, and
     on the CPU, from the same seeded weights and batch. Returns the card's
@@ -628,7 +740,7 @@ def _step_card_vs_cpu(load_spec, shape, lr, frozen_bn, seed):
     batch = [torch.from_numpy(x) for x in batch]
 
     optimizer = strategy.spec.OptimizerSpec("adam-w", {
-        "lr": lr, "weight_decay": 1e-4, "eps": STEP_EPS})
+        "lr": lr, "weight_decay": weight_decay, "eps": STEP_EPS})
     gradient = strategy.spec.GradientSpec.from_config(
         {"clip": {"type": "norm", "value": 1.0}})
 
@@ -747,9 +859,10 @@ def _write_training_tree(root, shape, pairs, strategy):
     (root / "strategy.yaml").write_text(strategy)
 
 
-def _strategy(name, batch, on_stage, max_lr, gamma=None):
-    """One stage on the synthetic scene: AdamW (weight decay 1e-4, eps
-    1e-8), the one-cycle schedule and clip of the shipped stages."""
+def _strategy(name, batch, on_stage, max_lr, gamma=None,
+              weight_decay=0.0001, total_steps="100000 + 100"):
+    """One stage on the synthetic scene: AdamW (eps 1e-8), the one-cycle
+    schedule and clip of the shipped stages."""
     loss = f"    loss:\n      arguments: {{gamma: {gamma}}}\n" if gamma else ""
     return (
         "mode: continuous\n"
@@ -765,13 +878,13 @@ def _strategy(name, batch, on_stage, max_lr, gamma=None):
         + loss +
         "    optimizer:\n"
         "      type: adam-w\n"
-        f"      parameters: {{lr: {max_lr}, weight_decay: 0.0001, "
+        f"      parameters: {{lr: {max_lr}, weight_decay: {weight_decay}, "
         "eps: 1.0e-8}\n"
         "    lr-scheduler:\n"
         "      instance:\n"
         "        - type: one-cycle\n"
         f"          parameters: {{max_lr: {max_lr}, total_steps: "
-        "'100000 + 100',\n"
+        f"'{total_steps}',\n"
         "                       pct_start: 0.05, cycle_momentum: false,\n"
         "                       anneal_strategy: linear}\n"
         "    gradient:\n"
@@ -1058,8 +1171,7 @@ def phase_ctf_model(card):
     raw, flow_gpu = gpu_step(x1, x2)
     torch.cuda.synchronize()
     launches = _counts()
-    expected = {"sample_window": CTF_ITERATIONS, "convex_combine_8x": 1,
-                "sample_window_bwd": 0, "convex_combine_8x_bwd": 0}
+    expected = _expect(sample_window=CTF_ITERATIONS, convex_combine_8x=1)
     if launches != expected:
         raise AssertionError(f"ctf forward launched {launches}, expected "
                              f"{expected}")
@@ -1117,9 +1229,8 @@ def phase_ctf_serve(card):
         launches = _counts()
 
     dispatched = report["batches"] + len(report["warmup"])
-    expected = {"sample_window": CTF_ITERATIONS * dispatched,
-                "convex_combine_8x": dispatched, "sample_window_bwd": 0,
-                "convex_combine_8x_bwd": 0}
+    expected = _expect(sample_window=CTF_ITERATIONS * dispatched,
+                       convex_combine_8x=dispatched)
     problems = []
     if report["completed"] != report["requests"] or report["requests"] != 16:
         problems.append(f"completed {report['completed']}/{report['requests']}")
@@ -1150,9 +1261,9 @@ def phase_ctf_train_step(card):
     each bound."""
     readings, tf32, launches, aux_cpu, cpu_s = _step_card_vs_cpu(
         _load_ctf, CTF_STEP_SHAPE, CTF_LR, False, 6)
-    expected = {"sample_window": CTF_ITERATIONS,
-                "sample_window_bwd": CTF_ITERATIONS,
-                "convex_combine_8x": 1, "convex_combine_8x_bwd": 1}
+    expected = _expect(sample_window=CTF_ITERATIONS,
+                       sample_window_bwd=CTF_ITERATIONS,
+                       convex_combine_8x=1, convex_combine_8x_bwd=1)
     emit(phase="ctf-train-step", model="raft+dicl/ctf-l3",
          shape=list(CTF_STEP_SHAPE), iterations=list(CTF_LEVEL_ITERATIONS),
          tf32=False, optimizer=f"adam-w (eps {STEP_EPS}) + clip norm 1.0",
@@ -1180,9 +1291,9 @@ def phase_ctf_train(card):
         CTF_TRAIN_STEPS,
         _strategy("s0-chairs", CTF_TRAIN_BATCH, "false", CTF_LR))
     steps = readings["steps"]
-    expected = {"sample_window": CTF_ITERATIONS * steps,
-                "sample_window_bwd": CTF_ITERATIONS * steps,
-                "convex_combine_8x": steps, "convex_combine_8x_bwd": steps}
+    expected = _expect(sample_window=CTF_ITERATIONS * steps,
+                       sample_window_bwd=CTF_ITERATIONS * steps,
+                       convex_combine_8x=steps, convex_combine_8x_bwd=steps)
     if readings["launches"] != expected:
         problems.append(f"kernels launched {readings['launches']}, expected "
                         f"{expected}")
@@ -1196,10 +1307,453 @@ def phase_ctf_train(card):
     return readings["launches"]
 
 
+# -- raft/fs ----------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _volume_budget(gib):
+    """``RMD_FS_VOLUME_GIB`` set to ``gib`` (None: unset, the default 4.0)
+    for the block, restored after it."""
+    saved = os.environ.pop("RMD_FS_VOLUME_GIB", None)
+    if gib is not None:
+        os.environ["RMD_FS_VOLUME_GIB"] = gib
+    try:
+        yield
+    finally:
+        os.environ.pop("RMD_FS_VOLUME_GIB", None)
+        if saved is not None:
+            os.environ["RMD_FS_VOLUME_GIB"] = saved
+
+
+def _wcp_inputs(case, gen):
+    """f1, the pooled f2 levels and the centres for one case: the level-0
+    grid plus a smooth random flow of a few px and the far centres."""
+    from raft_meets_dicl_tpu_torch.ops.pool import avg_pool2d
+
+    b, h, w = case["shape"]
+    c = case["c"]
+    dtype = getattr(torch, case["dtype"])
+    f1 = torch.randn(b, h, w, c, device="cuda", generator=gen).to(dtype)
+    levels = [torch.randn(b, h, w, c, device="cuda", generator=gen).to(dtype)]
+    for _ in range(case["levels"] - 1):
+        levels.append(avg_pool2d(levels[-1], 2))
+    ys, xs = torch.meshgrid(torch.arange(h, device="cuda"),
+                            torch.arange(w, device="cuda"), indexing="ij")
+    coords = torch.stack((xs, ys), dim=-1).float() \
+        + 4 * torch.randn(b, h, w, 2, device="cuda", generator=gen)
+    for p, centre in zip(_wcp_far(case), SW_FAR):
+        coords[p] = torch.tensor(centre[3:])
+    return f1, levels, coords.contiguous()
+
+
+def _wcp_far(case):
+    """The positions that get SW_FAR's far centres in this case's shape."""
+    b, h, w = case["shape"]
+    return [(min(bi, b - 1), min(y, h - 1), min(x, w - 1))
+            for bi, y, x, _, _ in SW_FAR]
+
+
+def _wcp_share(out, ref, scale, bf16=False):
+    """Largest |diff| and its share of 1e-5 max|ref| + 2^-13 scale (+ one
+    bf16 ulp of the larger value where the plain result is bf16)."""
+    err = (out.float() - ref.float()).abs()
+    bound = KERNEL_MAX_ABS_ERR * ref.float().abs().max() \
+        + WCP_ORDER_REL * scale
+    if bf16:
+        bound = bound + _bf16_ulp(torch.maximum(out.float().abs(),
+                                                ref.float().abs()))
+    return err.max().item(), (err / bound).max().item()
+
+
+def _wcp_bound(nbytes, ops, dtype):
+    """The least time for ``nbytes`` moved and ``ops`` done on inputs of
+    ``dtype``, in ms, what bounds it, and the float32 CUDA-core time."""
+    bytes_ms = 1e3 * nbytes / PEAK_BYTES_S
+    peak = PEAK_BF16_OPS_S if dtype == torch.bfloat16 else PEAK_F32_OPS_S
+    ops_ms = 1e3 * ops / peak
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations",
+            1e3 * ops / PEAK_F32_OPS_S)
+
+
+def phase_wcp_kernels(card):
+    """The three windowed_corr_pyramid kernels against the plain version
+    and its autograd on the card, TF32 off, at the raft/fs paths' shapes;
+    each timed beside the plain version and its bound."""
+    from raft_meets_dicl_tpu_torch.ops import windowed
+
+    set_tf32(False)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    r = FS_RADIUS
+    cases = []
+    for case in WCP_CASES:
+        dtype = getattr(torch, case["dtype"])
+        bf16 = dtype == torch.bfloat16
+        f1, levels, coords = _wcp_inputs(case, gen)
+        n_lvl = len(levels)
+        before = windowed.launches
+        out = windowed.windowed_corr_pyramid(f1, levels, coords, r,
+                                             normalize=False)
+        torch.cuda.synchronize()
+        if windowed.launches != before + 1:
+            raise AssertionError("windowed_corr_pyramid did not launch")
+        ref = windowed.windowed_corr_pyramid_reference(f1, levels, coords, r)
+        s_fwd = windowed.windowed_corr_pyramid_reference(
+            f1.abs(), [x.abs() for x in levels], coords, r)
+        err, share = _wcp_share(out, ref, s_fwd)
+        del s_fwd
+        b, h, w = case["shape"]
+        if not share <= 1.0 or any(out[p].abs().max().item() != 0
+                                   for p in _wcp_far(case)):
+            raise AssertionError(f"windowed_corr_pyramid {case}: max |diff| "
+                                 f"{err} ({share} of its bound), or a far "
+                                 "window not exact zeros")
+
+        dout = torch.randn(out.shape, device="cuda", generator=gen)
+        before = (windowed.df1_launches, windowed.df2_launches)
+        df1 = windowed._launch_df1(dout, f1, levels, coords, r)
+        df2 = [windowed._launch_df2(dout, f1, lvl, coords, i, n_lvl, r)
+               for i, lvl in enumerate(levels)]
+        torch.cuda.synchronize()
+        if (windowed.df1_launches, windowed.df2_launches) \
+                != (before[0] + 1, before[1] + n_lvl):
+            raise AssertionError("windowed_corr_pyramid backward did not "
+                                 "launch")
+        # rule: the kernels' float32 gradients against the plain autograd
+        # (float32 sums, rounded once to the inputs' dtype: one bf16 ulp),
+        # 1e-5 of the largest plain value + 2^-13 S
+        f1r = f1.detach().requires_grad_(True)
+        lvr = [x.detach().requires_grad_(True) for x in levels]
+        ref_out = windowed.windowed_corr_pyramid_reference(f1r, lvr, coords,
+                                                           r)
+        ref_grads = torch.autograd.grad(ref_out, [f1r, *lvr], dout,
+                                        retain_graph=True)
+        f1a = f1.detach().float().abs().requires_grad_(True)
+        lva = [x.detach().float().abs().requires_grad_(True) for x in levels]
+        s_bwd = torch.autograd.grad(
+            windowed.windowed_corr_pyramid_reference(f1a, lva, coords, r),
+            [f1a, *lva], dout.abs())
+        df1_err, df1_share = _wcp_share(df1, ref_grads[0], s_bwd[0], bf16)
+        df2_err, df2_share = 0.0, 0.0
+        for got, exp, scale in zip(df2, ref_grads[1:], s_bwd[1:]):
+            e, sh = _wcp_share(got, exp, scale, bf16)
+            df2_err, df2_share = max(df2_err, e), max(df2_share, sh)
+        del s_bwd, f1a, lva
+        if not (df1_share <= 1.0 and df2_share <= 1.0):
+            raise AssertionError(f"windowed_corr_pyramid backward {case}: "
+                                 f"df1 {df1_err} ({df1_share} of its bound), "
+                                 f"df2 {df2_err} ({df2_share})")
+
+        ms = gpu_timer_ms(lambda: windowed._launch(f1, levels, coords, r))
+        df1_ms = gpu_timer_ms(lambda: windowed._launch_df1(
+            dout, f1, levels, coords, r))
+        df2_ms = [gpu_timer_ms(lambda: windowed._launch_df2(
+            dout, f1, lvl, coords, i, n_lvl, r))
+            for i, lvl in enumerate(levels)]
+        plain_ms = gpu_timer_ms(
+            lambda: windowed.windowed_corr_pyramid_reference(
+                f1, levels, coords, r), launches=2, rounds=3)
+        plain_bwd_ms = gpu_timer_ms(lambda: torch.autograd.grad(
+            ref_out, [f1r, *lvr], dout, retain_graph=True),
+            launches=2, rounds=3)
+        del ref_out, ref_grads
+
+        c = case["c"]
+        positions = b * h * w
+        size = f1.element_size()
+        f1_bytes = f1.numel() * size
+        f2_bytes = [x.numel() * size for x in levels]
+        coords_bytes = coords.numel() * 4
+        out_bytes = out.numel() * 4
+        ops_level = 2 * WCP_TAPS * c * positions
+        fwd = _wcp_bound(f1_bytes + sum(f2_bytes) + coords_bytes + out_bytes,
+                         ops_level * n_lvl, dtype)
+        bwd1 = _wcp_bound(out_bytes + sum(f2_bytes) + coords_bytes
+                          + f1.numel() * 4, ops_level * n_lvl, dtype)
+        # df2 of level l: its dout columns, f1, coords, df2_l in float32
+        bwd2 = [_wcp_bound(out_bytes // n_lvl + f1_bytes + coords_bytes
+                           + x.numel() * 4, ops_level, dtype) for x in levels]
+        record = dict(
+            case=case["name"], dtype=case["dtype"], f1=list(f1.shape),
+            levels=[list(x.shape) for x in levels], radius=r,
+            positions=positions, max_abs_err=err, err_over_bound=share,
+            ms=ms, plain_ms=plain_ms, bound_ms=fwd[0], bound_by=fwd[1],
+            f32_cores_ms=fwd[2],
+            df1_max_abs_err=df1_err, df1_err_over_bound=df1_share,
+            df1_ms=df1_ms, df1_bound_ms=bwd1[0], df1_bound_by=bwd1[1],
+            df1_f32_cores_ms=bwd1[2],
+            df2_max_abs_err=df2_err, df2_err_over_bound=df2_share,
+            df2_ms=df2_ms, df2_bound_ms=[x[0] for x in bwd2],
+            df2_bound_by=[x[1] for x in bwd2],
+            df2_f32_cores_ms=[x[2] for x in bwd2],
+            plain_bwd_ms=plain_bwd_ms)
+        cases.append(record)
+        emit(phase="kernel-check", kernel="windowed_corr_pyramid",
+             tf32=False, card=card, **record)
+        del f1, levels, coords, out, ref, dout, df1, df2, f1r, lvr
+        torch.cuda.empty_cache()
+    return cases
+
+
+def _load_fs(mixed_precision=False):
+    from raft_meets_dicl_tpu_torch import models, utils
+
+    cfg = utils.config.load(FS_CFG)
+    cfg["model"]["parameters"]["mixed-precision"] = mixed_precision
+    return models.load(cfg)
+
+
+def phase_fs_model(card):
+    """raft/fs in float32, full width, 12 iterations, at 1x368x496, card vs
+    CPU from one seeded init, TF32 off, at three budgets: every level
+    windowed, the hybrid (2 + 2) and the default (every level a volume)."""
+    from raft_meets_dicl_tpu_torch import evaluation
+    from raft_meets_dicl_tpu_torch.models.impls.raft_fs import (
+        volume_level_split,
+    )
+
+    set_tf32(False)
+    rng = np.random.default_rng(8)
+    h, w = FS_MODEL_SHAPE
+    img1, img2 = (torch.from_numpy(rng.uniform(-1, 1, (1, h, w, 3))
+                                   .astype(np.float32)) for _ in range(2))
+    cpu_spec = _load_fs()
+    cpu_spec.model.init(torch.Generator().manual_seed(0), device="cpu")
+    gpu_spec = _load_fs()
+    gpu_spec.model.module.load_state_dict(cpu_spec.model.module.state_dict())
+    gpu_spec.model.module.to("cuda").eval()
+    bf16_spec = _load_fs(True)
+    bf16_spec.model.module.load_state_dict(cpu_spec.model.module.state_dict())
+    bf16_spec.model.module.to("cuda").eval()
+    cpu_step = evaluation.make_eval_fn(cpu_spec.model)
+    gpu_step = evaluation.make_eval_fn(gpu_spec.model)
+    bf16_step = evaluation.make_eval_fn(bf16_spec.model)
+    x1, x2 = img1.cuda(), img2.cuda()
+
+    runs, problems, launches = [], [], {}
+    for gib, n_win in FS_MODEL_BUDGETS:
+        with _volume_budget(gib):
+            split = volume_level_split((1, h // 8, w // 8), FS_LEVELS, 4)
+            if split != n_win:
+                raise AssertionError(f"budget {gib}: split {split}, expected "
+                                     f"{n_win}")
+            _zero_counts()
+            raw, flow_gpu = gpu_step(x1, x2)
+            torch.cuda.synchronize()
+            counts = _counts()
+            t0 = time.perf_counter()
+            _, flow_cpu = cpu_step(img1, img2)
+            cpu_s = time.perf_counter() - t0
+            # the same forward with TF32 convolutions and matmuls, which
+            # the bound must tell apart
+            set_tf32(True)
+            flow_tf32 = gpu_step(x1, x2)[1].cpu()
+            set_tf32(False)
+            forward_f32_ms = gpu_timer_ms(lambda: gpu_step(x1, x2),
+                                          launches=3)
+            forward_bf16_ms = gpu_timer_ms(lambda: bf16_step(x1, x2),
+                                           launches=3)
+        expected = _expect(
+            convex_combine_8x=1,
+            windowed_corr_pyramid=FS_ITERATIONS if n_win else 0)
+        flow_gpu = flow_gpu.cpu()
+        diff = (flow_gpu - flow_cpu).abs().max().item()
+        tf32_diff = (flow_tf32 - flow_cpu).abs().max().item()
+        run = dict(budget_gib=gib, n_windowed=n_win, max_abs_diff_px=diff,
+                   tf32_max_abs_diff_px=tf32_diff,
+                   max_abs_flow_px=flow_cpu.abs().max().item(),
+                   launches_per_forward=counts,
+                   forward_f32_ms=forward_f32_ms,
+                   forward_bf16_ms=forward_bf16_ms,
+                   cpu_forward_s=round(cpu_s, 3))
+        runs.append(run)
+        launches[f"budget {gib}"] = counts
+        if counts != expected:
+            problems.append(f"budget {gib}: launched {counts}, expected "
+                            f"{expected}")
+        if len(raw) != FS_ITERATIONS or tuple(flow_gpu.shape) != (1, h, w, 2):
+            problems.append(f"budget {gib}: {len(raw)} flows of "
+                            f"{tuple(flow_gpu.shape)}")
+        if not bool(torch.isfinite(flow_gpu).all()):
+            problems.append(f"budget {gib}: non-finite flow on the card")
+        bound = FS_MODEL_REL * max(run["max_abs_flow_px"], 1.0)
+        run["bound_px"] = bound
+        if not diff <= bound:
+            problems.append(f"budget {gib}: card vs CPU final flow max "
+                            f"|diff| {diff} px > {bound}")
+        if not tf32_diff > bound:
+            problems.append(f"budget {gib}: the TF32 forward stays inside "
+                            f"the bound ({tf32_diff} px)")
+    emit(phase="fs-model", model="raft/fs", shape=[1, h, w],
+         iterations=FS_ITERATIONS, tf32=False, bound_rel=FS_MODEL_REL,
+         runs=runs, card=card)
+    if problems:
+        raise AssertionError("fs model phase: " + "; ".join(problems))
+    return launches["budget 0"]
+
+
+def phase_fs_serve(card):
+    """The serve command with the shipped raft/fs config (bf16 policy):
+    the 1080x1920 bucket runs level 0 on the kernel, 448x1024 none."""
+    from raft_meets_dicl_tpu_torch import main as port_main
+    from raft_meets_dicl_tpu_torch.models.impls.raft_fs import (
+        volume_level_split,
+    )
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    buckets = ",".join(f"{h}x{w}" for h, w in FS_SERVE_BUCKETS)
+    with tempfile.TemporaryDirectory() as tmp, _volume_budget(None):
+        cfg = Path(tmp) / "serve.yaml"
+        cfg.write_text(
+            "serve:\n"
+            f"  model: {FS_CFG}\n"
+            f"  buckets: {buckets}\n"
+            f"  batch-size: {FS_SERVE_BATCH}\n"
+            "  max-wait-ms: 50\n"
+            "  requests: 16\n"
+            "  rate: 50\n")
+        _zero_counts()
+        report = port_main.main(["serve", "-c", str(cfg)])
+        launches = _counts()
+        # each dispatched batch (warm-up included) launches the forward
+        # kernel once per iteration where its split windows a level
+        windowed, dispatched, splits = 0, 0, {}
+        for h, w in FS_SERVE_BUCKETS:
+            key = f"{h}x{w}"
+            n = report["batches_by_bucket"].get(key, 0) + 1   # + warm-up
+            splits[key] = volume_level_split(
+                (FS_SERVE_BATCH, h // 8, w // 8), FS_LEVELS, 2)
+            windowed += FS_ITERATIONS * n * (splits[key] > 0)
+            dispatched += n
+
+    expected = _expect(convex_combine_8x=dispatched,
+                       windowed_corr_pyramid=windowed)
+    problems = []
+    if report["completed"] != report["requests"] or report["requests"] != 16:
+        problems.append(f"completed {report['completed']}/{report['requests']}")
+    if report["errors"] or report["rejected"]:
+        problems.append(f"errors {report['errors']}, rejected "
+                        f"{report['rejected']}")
+    if report["nonfinite"]:
+        problems.append(f"{report['nonfinite']} non-finite flows")
+    if splits != FS_SERVE_SPLITS:
+        problems.append(f"splits {splits}, expected {FS_SERVE_SPLITS}")
+    if not all(report["batches_by_bucket"].get(key)
+               for key, n in FS_SERVE_SPLITS.items() if n):
+        problems.append("no batch of a windowed bucket was dispatched")
+    if launches != expected:
+        problems.append(f"kernels launched {launches}, expected {expected} "
+                        "(batches + warm-up)")
+    if problems:
+        raise AssertionError("fs serve phase: " + "; ".join(problems))
+
+    emit(phase="fs-serve", model="raft/fs (bf16 policy)", buckets=buckets,
+         batch=FS_SERVE_BATCH, requests=report["requests"],
+         completed=report["completed"], batches=report["batches"],
+         batches_by_bucket=report["batches_by_bucket"], n_windowed=splits,
+         launches=launches, p50_ms=report["p50_ms"], p99_ms=report["p99_ms"],
+         pairs_per_sec=report["pairs_per_sec"], spans_ms=report["spans_ms"],
+         warmup=report["warmup"], card=card)
+    return launches
+
+
+def phase_fs_train_step(card):
+    """One float32 train step of full-width raft/fs, 12 iterations, frozen
+    batch norm, the hd1k-1080p stage's AdamW (at eps 1e-3) and clip, card
+    vs CPU, twice from the same seed: every level windowed (budget 0, the
+    kernels) and every level on volumes (the default budget, no
+    windowed-correlation kernel), so that the step's gap to the CPU can be
+    told apart from the kernels'. The same step with TF32 must break each
+    bound."""
+    from raft_meets_dicl_tpu_torch.models.impls.raft_fs import (
+        volume_level_split,
+    )
+
+    b, h, w = FS_STEP_SHAPE
+    steps = {}
+    for gib, n_win in (("0", FS_LEVELS), (None, 0)):
+        with _volume_budget(gib):
+            split = volume_level_split((b, h // 8, w // 8), FS_LEVELS, 4)
+            readings, tf32, launches, aux_cpu, cpu_s = _step_card_vs_cpu(
+                _load_fs, FS_STEP_SHAPE, FS_LR, True, 9, FS_WEIGHT_DECAY)
+        expected = _expect(
+            windowed_corr_pyramid=FS_ITERATIONS if n_win else 0,
+            windowed_corr_pyramid_df1=FS_ITERATIONS if n_win else 0,
+            windowed_corr_pyramid_df2=FS_ITERATIONS * n_win,
+            convex_combine_8x=1, convex_combine_8x_bwd=1)
+        emit(phase="fs-train-step", model="raft/fs",
+             shape=list(FS_STEP_SHAPE), iterations=FS_ITERATIONS,
+             budget_gib=4.0 if gib is None else float(gib),
+             n_windowed=split, tf32=False,
+             optimizer=f"adam-w (eps {STEP_EPS}, weight decay "
+                       f"{FS_WEIGHT_DECAY}) + clip norm 1.0",
+             lr=FS_LR, frozen_bn=True, loss_cpu=aux_cpu["loss"].item(),
+             grad_norm_cpu=aux_cpu["grad_norm"].item(),
+             update_norm_cpu=aux_cpu["update_norm"].item(),
+             bounds=FS_STEP_BOUNDS, launches=launches,
+             cpu_step_s=round(cpu_s, 3), card=card, **readings,
+             tf32_readings=tf32,
+             tf32_outside_bounds=_step_problems(tf32, FS_STEP_BOUNDS))
+        if split != n_win:
+            raise AssertionError(f"fs train step: split {split} at budget "
+                                 f"{gib}, expected {n_win}")
+        if launches != expected:
+            raise AssertionError(f"fs train step (n_win {n_win}) launched "
+                                 f"{launches}, expected {expected}")
+        _check_step(f"fs train step (n_win {n_win})", readings, tf32,
+                    FS_STEP_BOUNDS)
+        steps[n_win] = launches
+    return steps[FS_LEVELS]
+
+
+def phase_fs_train(card):
+    """The train command with the shipped raft/fs config (bf16 policy,
+    frozen batch norm) and the hd1k-1080p stage's optimizer, schedule and
+    clip, batch 1 at 2560x1072, default budget (level 0 windowed)."""
+    from raft_meets_dicl_tpu_torch.models.impls.raft_fs import (
+        volume_level_split,
+    )
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    h, w = FS_TRAIN_SHAPE
+    with _volume_budget(None):
+        n_win = volume_level_split((FS_TRAIN_BATCH, h // 8, w // 8),
+                                   FS_LEVELS, 2)
+        readings, problems = _train_command(
+            FS_CFG, FS_TRAIN_SHAPE, FS_TRAIN_BATCH, FS_TRAIN_PAIRS,
+            FS_TRAIN_STEPS,
+            _strategy("hd1k-1080p", FS_TRAIN_BATCH, "true", FS_LR,
+                      weight_decay=FS_WEIGHT_DECAY,
+                      total_steps="{n_epochs} * {n_batches} + 100"))
+    steps = readings["steps"]
+    expected = _expect(
+        windowed_corr_pyramid=FS_ITERATIONS * steps,
+        windowed_corr_pyramid_df1=FS_ITERATIONS * steps,
+        windowed_corr_pyramid_df2=FS_ITERATIONS * n_win * steps,
+        convex_combine_8x=steps, convex_combine_8x_bwd=steps)
+    if n_win != 1:
+        problems.append(f"split {n_win} at {h}x{w}, expected 1")
+    if readings["launches"] != expected:
+        problems.append(f"kernels launched {readings['launches']}, expected "
+                        f"{expected}")
+    if problems:
+        raise AssertionError("fs train phase: " + "; ".join(problems))
+    emit(phase="fs-train", model="raft/fs (bf16 policy, frozen BN)",
+         iterations=FS_ITERATIONS, n_windowed=n_win,
+         cudnn_tf32=torch.backends.cudnn.allow_tf32,
+         matmul_tf32=torch.backends.cuda.matmul.allow_tf32, card=card,
+         **readings)
+    return readings["launches"]
+
+
 def kernels_line(results):
-    """The four kernels with their checks, times and launches. ``launches``
-    is the count of this run's ctf-l3 ``main train`` (the main path);
-    ``launches_by_path`` has every path's count."""
+    """The seven kernels with their checks, times and launches.
+    ``launches`` is the count of the ``main train`` run of the slice that
+    ported the kernel (ctf-l3's for the convex and sampler kernels,
+    raft/fs's for the windowed correlation); ``launches_by_path`` has every
+    path's count."""
     raft_train = results["phase_train"]
     paths = {
         "raft_model": {"convex_combine_8x": results["phase_model"]},
@@ -1213,6 +1767,10 @@ def kernels_line(results):
         "ctf_serve": results["phase_ctf_serve"],
         "ctf_train_step": results["phase_ctf_train_step"],
         "ctf_train": results["phase_ctf_train"],
+        "fs_model": results["phase_fs_model"],
+        "fs_serve": results["phase_fs_serve"],
+        "fs_train_step": results["phase_fs_train_step"],
+        "fs_train": results["phase_fs_train"],
     }
 
     def launches(name):
@@ -1325,6 +1883,60 @@ def kernels_line(results):
                      "ulp of the larger value",
         "shape": sw_shape,
         "cases": sw_cases,
+    }] + _wcp_entries(results, launches)
+
+
+def _wcp_entries(results, launches):
+    """The three windowed-correlation kernels, quoting the 2560x1072
+    training case (bf16, level 0: the path whose launches they report)."""
+    cases = results["phase_wcp_kernels"]
+    main = cases[WCP_MAIN_CASE]
+    fs_train = results["phase_fs_train"]
+    src = "raft_meets_dicl_tpu_torch/csrc/windowed_corr.cu"
+    shape = (f"{main['dtype']} f1 {main['f1']}, levels {main['levels']}, "
+             f"radius {main['radius']} (raft/fs training, batch 1 at "
+             "2560x1072: level 0 windowed)")
+    note = ("no single PyTorch call computes the windowed correlation "
+            "(the plain version is a gather, two lerps and a batched dot)")
+    tolerance = ("|diff| <= 1e-5 max|plain| + 2^-13 S, S the plain function "
+                 "of |f1|, |f2_l| (and |dout|); gradients of bf16 inputs "
+                 "add one bf16 ulp")
+    common = dict(route="cuda", source=src, library_ms=None,
+                  library_note=note, tolerance=tolerance, shape=shape,
+                  cases=cases)
+    return [{
+        "name": "windowed_corr_pyramid",
+        "replaces": "raft_meets_dicl_tpu/ops/pallas.py:688",
+        "launches": fs_train["windowed_corr_pyramid"],
+        "launches_by_path": launches("windowed_corr_pyramid"),
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "max_err_over_bound": max(c["err_over_bound"] for c in cases),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "f32_cores_ms": main["f32_cores_ms"], **common,
+    }, {
+        "name": "windowed_corr_pyramid_df1",
+        "replaces": "raft_meets_dicl_tpu/ops/pallas.py:769",
+        "launches": fs_train["windowed_corr_pyramid_df1"],
+        "launches_by_path": launches("windowed_corr_pyramid_df1"),
+        "max_abs_err": max(c["df1_max_abs_err"] for c in cases),
+        "max_err_over_bound": max(c["df1_err_over_bound"] for c in cases),
+        "ms": main["df1_ms"], "plain_ms": main["plain_bwd_ms"],
+        "plain_note": "the plain backward computes df1 and df2 together",
+        "bound_ms": main["df1_bound_ms"], "bound_by": main["df1_bound_by"],
+        "f32_cores_ms": main["df1_f32_cores_ms"], **common,
+    }, {
+        "name": "windowed_corr_pyramid_df2",
+        "replaces": "raft_meets_dicl_tpu/ops/pallas.py:793",
+        "launches": fs_train["windowed_corr_pyramid_df2"],
+        "launches_by_path": launches("windowed_corr_pyramid_df2"),
+        "max_abs_err": max(c["df2_max_abs_err"] for c in cases),
+        "max_err_over_bound": max(c["df2_err_over_bound"] for c in cases),
+        "ms": main["df2_ms"][0], "plain_ms": main["plain_bwd_ms"],
+        "plain_note": "the plain backward computes df1 and df2 together",
+        "bound_ms": main["df2_bound_ms"][0],
+        "bound_by": main["df2_bound_by"][0],
+        "f32_cores_ms": main["df2_f32_cores_ms"][0], **common,
     }]
 
 
@@ -1356,10 +1968,12 @@ def main():
         emit(phase="timing", of=phase.__name__.removeprefix("phase_"),
              seconds=round(time.perf_counter() - t0, 3))
 
-    for phase in (phase_kernels, phase_model, phase_serve, phase_kernels_bwd,
-                  phase_train_step, phase_train, phase_sw_kernels,
-                  phase_ctf_model, phase_ctf_serve, phase_ctf_train_step,
-                  phase_ctf_train):
+    phases = (phase_kernels, phase_model, phase_serve, phase_kernels_bwd,
+              phase_train_step, phase_train, phase_sw_kernels,
+              phase_ctf_model, phase_ctf_serve, phase_ctf_train_step,
+              phase_ctf_train, phase_wcp_kernels, phase_fs_model,
+              phase_fs_serve, phase_fs_train_step, phase_fs_train)
+    for phase in phases:
         run(phase)
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)

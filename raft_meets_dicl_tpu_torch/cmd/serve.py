@@ -41,7 +41,8 @@ def _resolve(path, cfg_path):
 
 def serve(args):
     """Run the serve command; returns the report it prints, which also
-    counts the dispatched device batches (``batches``), the served flows
+    counts the dispatched device batches (``batches``, and per bucket
+    ``batches_by_bucket``), the served flows
     with a non-finite value (``nonfinite``) and lists the warm-up runs."""
     cfg = {}
     if getattr(args, "config", None):
@@ -112,6 +113,7 @@ def serve(args):
     report["nonfinite"] = sum(1 for r in results
                               if not np.isfinite(r.flow).all())
     report["batches"] = scheduler.batches
+    report["batches_by_bucket"] = dict(scheduler.batches_by_bucket)
     report["warmup"] = warmup
 
     logging.info(

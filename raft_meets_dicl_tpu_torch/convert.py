@@ -1,6 +1,6 @@
 """Weight bridge: the JAX package's variables -> this package's
-``state_dict``, for ``raft/baseline`` and the ``raft+dicl`` coarse-to-fine
-models.
+``state_dict``, for ``raft/baseline``, ``raft/fs`` and the ``raft+dicl``
+coarse-to-fine models.
 
 Input is the JAX variables tree as nested mappings of numpy arrays (for
 example ``jax.tree.map(np.asarray, model.init(...))``). Flax module paths
@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .models.impls.raft_dicl_ctf import RaftPlusDiclCtfModule
+from .models.impls.raft_fs import RaftFsModule
 
 
 def _stem_rules(src):
@@ -60,9 +61,10 @@ def _update_block_rules(flax_path, torch_path):
     return rules
 
 
-def raft_rules(corr_levels=4):
-    """flax module path (dotted) -> torch module path for raft/baseline
-    (with the per-level DAPs of ``corr-reg-type: softargmax+dap``)."""
+def _s3_rules(step):
+    """The modules raft/baseline and raft/fs share: both S3 encoders, the
+    update block in the scan body ``step`` and the upsampling network,
+    which runs outside the scan (batched application)."""
     rules = {}
     for flax_enc, torch_enc in (("FeatureEncoderS3_0", "fnet"),
                                 ("FeatureEncoderS3_1", "cnet")):
@@ -70,17 +72,28 @@ def raft_rules(corr_levels=4):
             rules[f"{flax_enc}._Stem_0.{flax_frag}"] = torch_frag
         rules[f"{flax_enc}.Conv_0"] = f"{torch_enc}.conv2"
 
-    step = "ScanCheckpoint_RaftStep_0"
     rules |= _update_block_rules(f"{step}.BasicUpdateBlock_0", "update_block")
+    rules["Up8Network_0.Conv_0"] = "update_block.mask.0"
+    rules["Up8Network_0.Conv_1"] = "update_block.mask.2"
+    return rules
+
+
+def raft_rules(corr_levels=4):
+    """flax module path (dotted) -> torch module path for raft/baseline
+    (with the per-level DAPs of ``corr-reg-type: softargmax+dap``)."""
+    step = "ScanCheckpoint_RaftStep_0"
+    rules = _s3_rules(step)
     for i in range(corr_levels):
         rules[f"{step}.SoftArgMaxFlowRegression_0."
               f"DisplacementAwareProjection_{i}.Conv_0"] = \
             f"corr_reg.dap.{i}.conv1"
-
-    # the upsampling network runs outside the scan (batched application)
-    rules["Up8Network_0.Conv_0"] = "update_block.mask.0"
-    rules["Up8Network_0.Conv_1"] = "update_block.mask.2"
     return rules
+
+
+def fs_rules():
+    """flax module path -> torch module path for raft/fs: raft/baseline's
+    modules without a readout, the scan body named ``_FsStep``."""
+    return _s3_rules("ScanCheckpoint_FsStep_0")
 
 
 def _pyramid_rules(flax_enc, torch_enc, levels):
@@ -169,6 +182,8 @@ def rules_for(module):
     if isinstance(module, RaftPlusDiclCtfModule):
         return ctf_rules(module.levels, module.share_dicl, module.share_rnn,
                          module.upsample_hidden)
+    if isinstance(module, RaftFsModule):
+        return fs_rules()
     return raft_rules(module.corr_levels)
 
 

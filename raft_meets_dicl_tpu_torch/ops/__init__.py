@@ -1,7 +1,8 @@
-"""Compute layer: plain-torch correlation/upsampling ops and the
-hand-written CUDA kernels (``convex``, ``sample``) with their build/load
-module (``cuda_build``)."""
+"""Compute layer: plain-torch correlation/pooling/upsampling ops and the
+hand-written CUDA kernels (``convex``, ``sample``, ``windowed``) with their
+build/load module (``cuda_build``)."""
 
-from . import convex, corr, cuda_build, sample, upsample
+from . import convex, corr, cuda_build, pool, sample, upsample, windowed
 
-__all__ = ["convex", "corr", "cuda_build", "sample", "upsample"]
+__all__ = ["convex", "corr", "cuda_build", "pool", "sample", "upsample",
+           "windowed"]

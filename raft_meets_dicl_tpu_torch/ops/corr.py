@@ -1,11 +1,11 @@
 """Correlation pyramid and windowed lookup in plain torch.
 
 Counterpart of ``raft_meets_dicl_tpu/ops/corr.py`` (the parts on the
-``raft/baseline`` path). Same conventions: features NHWC ``(B, H, W, C)``;
-coords ``(B, H, W, 2)`` pixel positions with channel 0 = x, 1 = y; the
-per-level lookup windows are ``(dy, dx)``-ordered, and the flat channel
-contract (``window_delta``, the motion encoder's first conv) is
-``(level, dx, dy)``.
+``raft/baseline`` and ``raft/fs`` paths). Same conventions: features NHWC
+``(B, H, W, C)``; coords ``(B, H, W, 2)`` pixel positions with channel
+0 = x, 1 = y; the per-level lookup windows are ``(dy, dx)``-ordered, and
+the flat channel contract (``window_delta``, the motion encoder's first
+conv) is ``(level, dx, dy)``.
 
 Each pyramid level is one batched matmul against a pooled frame-2 map
 (pooling commutes with the dot product). The bilinear window lookup is
@@ -52,6 +52,31 @@ def correlation_pyramid_direct(fmap1, fmap2, num_levels=4, dtype=None):
     return pyramid
 
 
+def correlation_volume(fmap1, fmap2_level, dtype=None, normalize=True):
+    """Single-level all-pairs volume (B, H1, W1, H2, W2) against one
+    (possibly pooled) frame-2 map, accumulated in float32, scaled by
+    1/sqrt(C) unless ``normalize`` is False (the ``raft/fs`` convention),
+    cast to ``dtype`` (float32 if None).
+
+    An unscaled volume stored in a narrower ``dtype`` is one matmul in
+    that dtype (float32 accumulation, one rounding, as the JAX einsum's
+    cast); otherwise the matmul runs in float32.
+    """
+    b, h, w, c = fmap1.shape
+    h2, w2 = fmap2_level.shape[1:3]
+    f1 = fmap1.reshape(b, h * w, c)
+    f2 = fmap2_level.reshape(b, h2 * w2, c)
+    narrow = dtype not in (None, torch.float32) and not normalize
+    if narrow:
+        f1, f2 = f1.to(dtype), f2.to(dtype)
+    else:
+        f1, f2 = f1.float(), f2.float()
+    corr = torch.matmul(f1, f2.transpose(1, 2)).reshape(b, h, w, h2, w2)
+    if normalize:
+        corr = corr / math.sqrt(c)
+    return corr.to(dtype) if dtype is not None else corr
+
+
 def window_offsets(radius, dtype=torch.float32, device=None):
     """(2r+1,) per-axis window offsets: -r, ..., 0, ..., r."""
     return torch.linspace(-radius, radius, 2 * radius + 1, dtype=dtype,
@@ -92,16 +117,21 @@ def _lookup_level(corr, x, y):
     return out.reshape(b, h1, w1, k, k)
 
 
-def lookup_pyramid_levels(pyramid, coords, radius, mask_costs=()):
+def lookup_pyramid_levels(pyramid, coords, radius, mask_costs=(),
+                          first_level=0):
     """Windowed lookup, one (B, H, W, K_dy, K_dx) tensor per pyramid level.
 
     ``mask_costs`` zeroes whole levels by pyramid level id (i + 3, the
-    downsampling octave), the reference convention.
+    downsampling octave), the reference convention. ``first_level``
+    offsets the pyramid: ``pyramid[i]`` is octave ``first_level + i`` for
+    its centre scaling and its ``mask_costs`` id (the ``raft/fs`` hybrid
+    looks up only the coarse suffix through volumes).
     """
     d = window_offsets(radius, coords.dtype, coords.device)
 
     out = []
-    for lvl, corr in enumerate(pyramid):
+    for i, corr in enumerate(pyramid):
+        lvl = first_level + i
         centers = coords / (2**lvl)
         x = centers[..., 0:1] + d  # (B, H, W, K) window positions along W2
         y = centers[..., 1:2] + d  # (B, H, W, K) window positions along H2
@@ -119,3 +149,36 @@ def flatten_levels(levels):
     b, h, w = levels[0].shape[:3]
     return torch.cat([lvl.transpose(3, 4).reshape(b, h, w, -1)
                       for lvl in levels], dim=-1)
+
+
+def windowed_correlation(fmap1, fmap2_level, coords, radius, scale,
+                         normalize=True):
+    """On-the-fly windowed correlation, without the volume: for each
+    position p with centre c = coords[p] / scale, the dot of f1[p] with
+    f2_level bilinearly sampled (zero outside) at c + d for each d of the
+    (2r+1)² window. (B, H, W, (2r+1)²) float32, channels (dx, dy)
+    row-major; ``normalize`` divides by sqrt(C) (``raft/fs`` skips it).
+
+    The plain per-level form the JAX ``_wcp_reference`` concatenates: the
+    sampled window (B, H·W·K², C) is materialized in float32. f2 is read
+    as float32 (exact), so the forward equals the JAX function and the
+    gradient accumulates in float32, as the kernels' does, and rounds to
+    the input dtype once (the JAX autograd of the bf16 gather sums in
+    bf16).
+    """
+    from .sample import sample_bilinear
+
+    b, h, w, c = fmap1.shape
+    k = 2 * radius + 1
+    delta = window_delta(radius, coords.dtype, coords.device)
+
+    centers = coords[:, :, :, None, None, :] / scale + delta  # (B,H,W,K,K,2)
+    x = centers[..., 0].reshape(b, h * w * k * k)
+    y = centers[..., 1].reshape(b, h * w * k * k)
+
+    sampled = sample_bilinear(fmap2_level.float(), x, y)
+    sampled = sampled.reshape(b, h, w, k * k, c)
+    corr = torch.einsum("bhwc,bhwkc->bhwk", fmap1.float(), sampled.float())
+    if normalize:
+        corr = corr / math.sqrt(c)
+    return corr

@@ -23,6 +23,9 @@ detaches the lookup centres). On a CPU tensor it computes the plain
 version, ``sample_window``, whose autograd is the backward there.
 ``launches`` and ``bwd_launches`` count kernel launches (CPU calls do not
 count), so a run can show that its path went through the kernels.
+
+``sample_bilinear`` (JAX ``ops/sample.py::sample_bilinear``) is plain
+PyTorch: the windowed correlation's plain version samples with it.
 """
 
 import ctypes
@@ -39,6 +42,37 @@ KERNEL_RADIUS = 4
 # kernel launches made by this process (forward, backward); reset freely
 launches = 0
 bwd_launches = 0
+
+
+def sample_bilinear(img, x, y):
+    """Sample ``img`` (B, H, W, C) at pixel positions ``x``, ``y`` (B, N)
+    with zero padding outside: ``F.grid_sample(align_corners=True,
+    padding_mode='zeros')`` semantics, the four corner terms summed in the
+    JAX ``ops/sample.py::sample_bilinear`` order. Returns (B, N, C), float32
+    for float32 positions (the corner values are promoted, as in JAX)."""
+    b, h, w, c = img.shape
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    x1 = x0 + 1
+    y1 = y0 + 1
+
+    wx1 = x - x0
+    wy1 = y - y0
+    wx0 = 1.0 - wx1
+    wy0 = 1.0 - wy1
+
+    flat = img.reshape(b, h * w, c)
+
+    def gather(ix, iy):
+        inb = (ix >= 0) & (ix <= w - 1) & (iy >= 0) & (iy <= h - 1)
+        idx = iy.clamp(0, h - 1).long() * w + ix.clamp(0, w - 1).long()
+        vals = torch.gather(flat, 1, idx[..., None].expand(-1, -1, c))
+        return vals * inb[..., None]
+
+    return (gather(x0, y0) * (wx0 * wy0)[..., None]
+            + gather(x1, y0) * (wx1 * wy0)[..., None]
+            + gather(x0, y1) * (wx0 * wy1)[..., None]
+            + gather(x1, y1) * (wx1 * wy1)[..., None])
 
 
 def sample_window(f2, coords, radius):

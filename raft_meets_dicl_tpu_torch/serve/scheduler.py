@@ -70,8 +70,9 @@ class Ticket:
 class Scheduler:
     """Admission control + dispatch loop over one serve session.
 
-    ``batches`` counts dispatched device batches and ``errors`` the
-    requests that failed in dispatch.
+    ``batches`` counts dispatched device batches (``batches_by_bucket``
+    per ``"HxW"`` bucket) and ``errors`` the requests that failed in
+    dispatch.
     """
 
     def __init__(self, session, batch_size=None,
@@ -84,6 +85,7 @@ class Scheduler:
         self.max_wait_s = float(max_wait_ms) / 1e3
 
         self.batches = 0
+        self.batches_by_bucket = {}
         self.errors = 0
 
         self._lock = threading.Lock()
@@ -215,6 +217,9 @@ class Scheduler:
         img1, img2, _ = self.batcher.assemble(batch)
         flow = self.session.run(img1, img2)
         self.batches += 1
+        key = f"{bucket[0]}x{bucket[1]}"
+        self.batches_by_bucket[key] = self.batches_by_bucket.get(key, 0) \
+            + 1
         t1 = time.perf_counter()
         flow = self.session.fetch(flow)
         t2 = time.perf_counter()

@@ -1,5 +1,5 @@
 """Utility modules."""
 
-from . import config, expr, seeds
+from . import config, env, expr, seeds
 
-__all__ = ["config", "expr", "seeds"]
+__all__ = ["config", "env", "expr", "seeds"]

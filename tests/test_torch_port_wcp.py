@@ -1,0 +1,249 @@
+"""PyTorch port: the windowed correlation pyramid of ``raft/fs``
+(``ops.windowed``, what its CUDA kernels are held against on the card) and
+``ops.pool.avg_pool2d``, held against the JAX package on the CPU from the
+same numpy inputs.
+
+- the plain ``windowed_corr_pyramid`` against the JAX ``_wcp_reference``,
+  forward and ``jax.vjp`` (df1, df2), float32 and bf16, and against the
+  Pallas kernels in interpret mode (``_wcp_fwd_interpret`` /
+  ``_wcp_bwd_interpret``, per-position and band forms); far out-of-bounds
+  centres give exact zeros; coords get no gradient;
+- ``mask_costs`` and ``normalize`` against the JAX ``windowed_corr_pyramid``;
+- ``avg_pool2d`` bit for bit in float32 and bf16;
+- the kernel route refuses CPU tensors and counts nothing on the CPU.
+
+Inputs: b2 16x24, C = 32, radius 4, 4 pooled levels, centres on the grid
+plus a spread of 8 px and a few far out-of-bounds centres.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from raft_meets_dicl_tpu.ops import pallas as jpallas
+from raft_meets_dicl_tpu.ops.pool import avg_pool2d as javg_pool2d
+from raft_meets_dicl_tpu_torch.ops import pool as tpool
+from raft_meets_dicl_tpu_torch.ops import windowed as twindowed
+
+pytestmark = pytest.mark.torch_port
+
+RADIUS = 4
+LEVELS = 4
+# the unnormalized correlation grows with |f1| |f2|: each check is
+# |diff| <= ATOL_REL * max |expected| + ORDER_REL * S, S the same function
+# of |f1| and |f2_l| (for df1, df2: of |dout| too), as on the card. Two
+# float32 sums of the same n terms in other orders differ by at most
+# 2 (n - 1) 2^-24 S; 2^-13 covers n <= 1,024 (C = 32 products per dot, up
+# to 4 bilinear terms per tap and 81 taps per df1 or df2 element)
+ATOL_REL = 1e-5
+ORDER_REL = 2.0 ** -13
+FAR = [(0, 0, 0, 1e4, -1e4), (1, 3, 5, -3e4, 5.5), (1, 9, 20, 40.0, 1e5)]
+
+
+def _bf16_ulp(x):
+    """Spacing of bfloat16 values at |x|: 2^(e - 7) for |x| in
+    [2^e, 2^(e+1)); 0 at 0."""
+    _, exp = np.frexp(np.abs(x))
+    return np.where(x == 0, 0.0, np.ldexp(1.0, exp - 8))
+
+
+def _inputs(seed, dtype, b=2, h=16, w=24, c=32):
+    """f1, f2 and coords as numpy float32 (bf16 inputs rounded once, so
+    both packages see the same values); the level-0 grid plus a spread of
+    8 px and the FAR centres."""
+    rs = np.random.RandomState(seed)
+    f1 = rs.randn(b, h, w, c).astype(np.float32)
+    f2 = rs.randn(b, h, w, c).astype(np.float32)
+    if dtype == "bfloat16":
+        f1 = torch.from_numpy(f1).to(torch.bfloat16).float().numpy()
+        f2 = torch.from_numpy(f2).to(torch.bfloat16).float().numpy()
+    gy, gx = np.meshgrid(np.arange(h, dtype=np.float32),
+                         np.arange(w, dtype=np.float32), indexing="ij")
+    coords = (np.stack([gx, gy], -1)[None].repeat(b, 0)
+              + rs.randn(b, h, w, 2) * 8).astype(np.float32)
+    for bi, y, x, cx, cy in FAR:
+        if y < h and x < w:
+            coords[bi, y, x] = (cx, cy)
+    return f1, f2, coords
+
+
+def _jax_levels(f2, dtype):
+    levels = [jnp.asarray(f2, getattr(jnp, dtype))]
+    for _ in range(LEVELS - 1):
+        levels.append(javg_pool2d(levels[-1], 2))
+    return tuple(levels)
+
+
+def _torch_levels(f2, dtype, requires_grad=False):
+    levels = [torch.from_numpy(f2).to(getattr(torch, dtype))]
+    for _ in range(LEVELS - 1):
+        levels.append(tpool.avg_pool2d(levels[-1], 2))
+    if requires_grad:
+        levels = [lvl.detach().requires_grad_(True) for lvl in levels]
+    return levels
+
+
+def _check(actual, expected, scale, bf16=False):
+    """|actual - expected| <= ATOL_REL max|expected| + ORDER_REL * scale
+    (+ one bf16 ulp of the larger value for a bf16 result)."""
+    a = actual.detach().float().numpy()
+    e = np.asarray(expected, np.float32)
+    assert a.shape == e.shape
+    bound = ATOL_REL * np.abs(e).max() + ORDER_REL * np.asarray(scale)
+    if bf16:
+        bound = bound + _bf16_ulp(np.maximum(np.abs(a), np.abs(e)))
+    assert np.all(np.abs(a - e) <= bound), float(np.abs(a - e).max())
+
+
+def _plain_with_scale(f1, levels, coords, dout=None):
+    """The plain pyramid, and S: the same function of |f1| and |f2_l| (with
+    ``dout``: the gradients of |dout| there)."""
+    t1 = torch.from_numpy(f1).abs().requires_grad_(True)
+    tl = [torch.from_numpy(np.array(lvl, np.float32)).abs()
+          .requires_grad_(True) for lvl in levels]
+    s = twindowed.windowed_corr_pyramid_reference(t1, tl, coords, RADIUS)
+    if dout is None:
+        return s.detach()
+    return torch.autograd.grad(s, [t1, *tl], dout.abs())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_wcp_matches_jax_reference(dtype):
+    f1, f2, coords = _inputs(3, dtype)
+    jlevels = _jax_levels(f2, dtype)
+    jf1 = jnp.asarray(f1, getattr(jnp, dtype))
+    jc = jnp.asarray(coords)
+    expected = jpallas._wcp_reference(jf1, jlevels, jc, RADIUS)
+
+    tf1 = torch.from_numpy(f1).to(getattr(torch, dtype)).requires_grad_(True)
+    tlevels = _torch_levels(f2, dtype, requires_grad=True)
+    tc = torch.from_numpy(coords).requires_grad_(True)
+    before = (twindowed.launches, twindowed.df1_launches,
+              twindowed.df2_launches)
+    actual = twindowed.windowed_corr_pyramid(tf1, tlevels, tc, RADIUS,
+                                             normalize=False)
+    assert actual.dtype == torch.float32
+    assert tuple(actual.shape) == (2, 16, 24, LEVELS * 81)
+    levels_f32 = [np.asarray(lvl, np.float32) for lvl in jlevels]
+    _check(actual, expected,
+           _plain_with_scale(f1, levels_f32, torch.from_numpy(coords)))
+    # a window wholly outside f2 is exact zeros at every level
+    for bi, y, x, _, _ in FAR:
+        assert torch.all(actual[bi, y, x] == 0)
+
+    # the gradients against jax.vjp of the reference, in float32 (the bf16
+    # jax.vjp sums the gather's cotangent in bf16; the port, as the JAX
+    # TPU kernels, sums in float32 and rounds once)
+    dout = np.random.RandomState(4).randn(*actual.shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b: jpallas._wcp_reference(a, b, jc, RADIUS),
+                     jnp.asarray(f1), tuple(jnp.asarray(lvl)
+                                            for lvl in levels_f32))
+    jdf1, jdf2 = vjp(jnp.asarray(dout))
+    actual.backward(torch.from_numpy(dout))
+    scales = _plain_with_scale(f1, levels_f32, torch.from_numpy(coords),
+                               torch.from_numpy(dout))
+    bf16 = dtype == "bfloat16"
+    assert tf1.grad.dtype == tf1.dtype
+    _check(tf1.grad, jdf1, scales[0], bf16)
+    for lvl, exp, scale in zip(tlevels, jdf2, scales[1:]):
+        assert lvl.grad.dtype == lvl.dtype
+        _check(lvl.grad, exp, scale, bf16)
+    assert tc.grad is None
+    assert (twindowed.launches, twindowed.df1_launches,
+            twindowed.df2_launches) == before
+
+
+@pytest.mark.parametrize("band", [False, True], ids=["per-position", "band"])
+def test_plain_wcp_matches_pallas_interpret(band):
+    """The TPU kernels in interpret mode: forward, df1 and every df2 level
+    (float32 outputs before the cast)."""
+    f1, f2, coords = _inputs(5, "float32", h=8, w=12)
+    jlevels = _jax_levels(f2, "float32")
+    jf1, jc = jnp.asarray(f1), jnp.asarray(coords)
+    kernel = jpallas._wcp_fwd_interpret(jf1, jlevels, jc, RADIUS, band=band)
+
+    tf1 = torch.from_numpy(f1).requires_grad_(True)
+    tlevels = _torch_levels(f2, "float32", requires_grad=True)
+    tc = torch.from_numpy(coords)
+    actual = twindowed.windowed_corr_pyramid_reference(tf1, tlevels, tc,
+                                                       RADIUS)
+    levels_f32 = [np.asarray(lvl) for lvl in jlevels]
+    _check(actual, kernel, _plain_with_scale(f1, levels_f32, tc))
+
+    dout = np.random.RandomState(6).randn(*actual.shape).astype(np.float32)
+    df1, df2 = jpallas._wcp_bwd_interpret(jf1, jlevels, jc,
+                                          jnp.asarray(dout), RADIUS,
+                                          band=band)
+    grads = torch.autograd.grad(actual, [tf1, *tlevels],
+                                torch.from_numpy(dout))
+    scales = _plain_with_scale(f1, levels_f32, tc, torch.from_numpy(dout))
+    _check(grads[0], df1, scales[0])
+    assert len(df2) == LEVELS
+    for got, exp, scale in zip(grads[1:], df2, scales[1:]):
+        _check(got, exp, scale)
+
+
+@pytest.mark.parametrize("mask_costs,normalize", [
+    ((), True), ((3,), False), ((4, 6), True), ((5, 6), False)])
+def test_wcp_mask_costs_and_normalize_match_jax(mask_costs, normalize):
+    """Level masking by pyramid level id (l + 3) and the 1/sqrt(C) scale,
+    against the public JAX ``windowed_corr_pyramid``."""
+    f1, f2, coords = _inputs(7, "float32")
+    jlevels = _jax_levels(f2, "float32")
+    expected = jpallas.windowed_corr_pyramid(
+        jnp.asarray(f1), jlevels, jnp.asarray(coords), RADIUS,
+        mask_costs=mask_costs, normalize=normalize)
+    actual = twindowed.windowed_corr_pyramid(
+        torch.from_numpy(f1), _torch_levels(f2, "float32"),
+        torch.from_numpy(coords), RADIUS, mask_costs=mask_costs,
+        normalize=normalize)
+    scale = _plain_with_scale(f1, [np.asarray(lvl) for lvl in jlevels],
+                              torch.from_numpy(coords))
+    if normalize:
+        scale = scale / np.sqrt(f1.shape[-1])
+    _check(actual, expected, scale)
+    for lvl in range(LEVELS):
+        chunk = actual[..., lvl * 81:(lvl + 1) * 81]
+        assert bool(torch.all(chunk == 0)) == (lvl + 3 in mask_costs)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 16, 24, 32), (1, 7, 9, 5),
+                                   (3, 1, 2, 8)])
+def test_avg_pool2d_bit_exact(dtype, shape):
+    """The JAX pool sums the 2x2 window in the input dtype, row-major, then
+    divides by 4: under bf16 that differs from a float32 mean, and the port
+    matches it bit for bit (odd sizes drop the last row / column)."""
+    x = np.random.RandomState(8).randn(*shape).astype(np.float32)
+    expected = np.asarray(javg_pool2d(jnp.asarray(x, getattr(jnp, dtype)), 2)
+                          .astype(jnp.float32))
+    actual = tpool.avg_pool2d(torch.from_numpy(x).to(getattr(torch, dtype)),
+                              2)
+    assert actual.dtype == getattr(torch, dtype)
+    np.testing.assert_array_equal(actual.float().numpy(), expected)
+
+
+def test_wcp_kernel_route_refuses_cpu_tensors():
+    """The kernel entry points take CUDA tensors only; on the CPU the
+    public op takes the plain version and launches nothing."""
+    f1, f2, coords = _inputs(9, "float32", h=4, w=6)
+    tf1, tc = torch.from_numpy(f1), torch.from_numpy(coords)
+    levels = _torch_levels(f2, "float32")[:2]
+    dout = torch.zeros(2, 4, 6, 2 * 81)
+    for call in (lambda: twindowed._launch(tf1, levels, tc, RADIUS),
+                 lambda: twindowed._launch_df1(dout, tf1, levels, tc, RADIUS),
+                 lambda: twindowed._launch_df2(dout, tf1, levels[1], tc, 1, 2,
+                                               RADIUS)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    before = (twindowed.launches, twindowed.df1_launches,
+              twindowed.df2_launches)
+    twindowed.windowed_corr_pyramid(tf1, levels, tc, RADIUS)
+    assert (twindowed.launches, twindowed.df1_launches,
+            twindowed.df2_launches) == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        twindowed.windowed_corr_pyramid(tf1.to("meta"),
+                                        [x.to("meta") for x in levels],
+                                        tc.to("meta"), RADIUS)
