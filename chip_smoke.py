@@ -8,7 +8,8 @@ the card and fails (non-zero exit, no result line) on any fault:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
 2. build: every CUDA kernel of the paths (``convex_combine_8x``,
-   ``sample_window`` and ``windowed_corr``, one source each), compiled
+   ``sample_window``, ``windowed_corr`` and ``fused_lookup``, one source
+   each), compiled
    with one ``nvcc`` per source, all started together, for ``sm_90a`` from
    ``raft_meets_dicl_tpu_torch/csrc``; ptxas registers and spills printed;
 3. kernels: the forward against its plain PyTorch version on the card, at
@@ -92,13 +93,36 @@ the card and fails (non-zero exit, no result line) on any fault:
 18. fs train: ``main train`` with the shipped raft/fs config and the
    hd1k-1080p stage's optimizer, schedule and clip, batch 1 at 2560x1072,
    8 steps, default budget (level 0 windowed): every loss finite, 12 + 12
-   + 12 windowed-correlation launches per step.
+   + 12 windowed-correlation launches per step;
+19. lookup kernels: ``lookup_stage1`` and ``lookup_fused``
+   (``csrc/fused_lookup.cu``) against their plain versions on the card,
+   TF32 and cuBLAS's reduced-precision bf16 reductions off, at the
+   lookup probe's bench case (level 0 of batch 6 at 400x720, its hat
+   inputs) in bf16 and f32, dense random weights, a ragged and a wide
+   case, each timed beside the plain version, its bound and the
+   ``torch.matmul`` pair (checked against the plain version too); then the
+   probe itself (``python -m raft_meets_dicl_tpu_torch.scripts.
+   probe_fused_lookup``, bf16 and f32, its own process): all four arms
+   within their bounds, each kernel launched once per timed call and once
+   to warm up;
+20. quantized tier: the int8 pyramid, the u8 pyramid and u8/i8 levels of
+   identical inputs on the card and the CPU (the levels and int8 level 0
+   bit for bit, pooled int8 levels one step at most; u8 values one step
+   apart in a share TF32 on the volume matmul must exceed), then
+   ``raft/baseline`` in float32 at 1x368x496, 12 iterations, with
+   ``quant`` u8 and i8, and ``raft/fs`` with u8 at ``RMD_FS_VOLUME_GIB``
+   0.01 (two quantized volume levels), card vs CPU from one seeded init,
+   TF32 off, the card's volumes built from the CPU's feature maps: the
+   first iteration's and the final flow within their bounds below, the
+   same forward with TF32 outside the first's, and the tier's own effect
+   (quantized vs the card's unquantized flow) larger than each; the card's
+   run from its own features is read beside it.
 
 Each phase prints one JSON line (and a ``timing`` line); every phase runs
 even after another failed, and a failure ends the run with exit code 1
-and no result line. Then the ``kernels`` line (the seven kernels, each
-with ``launches`` from its slice's ``main train`` run and
-``launches_by_path``),
+and no result line. Then the ``kernels`` line (the nine kernels, each
+with ``launches`` from its slice's main path, ``main train`` or the
+probe's bf16 run, and ``launches_by_path``),
 the card's ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 """
@@ -189,7 +213,8 @@ RAFT_STEP_BOUNDS = {"loss": STEP_LOSS_REL, "gradient": STEP_GRAD_REL_L2,
                     "update": STEP_UPDATE_REL_L2, "params": STEP_PARAM_MAX_ABS}
 
 # every kernel source, built by one nvcc each
-KERNEL_SOURCES = ("convex_combine_8x", "sample_window", "windowed_corr")
+KERNEL_SOURCES = ("convex_combine_8x", "sample_window", "windowed_corr",
+                  "fused_lookup")
 
 # -- raft+dicl/ctf-l3: the shipped config (f32, radius 4, 32 corr channels),
 # the default iterations per level, coarse to fine
@@ -323,6 +348,73 @@ FS_TRAIN_BATCH = 1
 FS_TRAIN_PAIRS = 8
 FS_TRAIN_STEPS = 8
 
+
+# -- the lookup probe's kernels (csrc/fused_lookup.cu). Cases (b, ni, nj,
+# h2, w2): the probe's bench case (level 0 of batch 6 at 400x720) in bf16
+# and f32 with its own hat inputs; dense random wy, wx (every product
+# counts); a ragged case; a wide one (W2 700: the fused tile takes more
+# than 48 KB of shared memory, the opt-in path)
+LOOKUP_CASES = (
+    {"name": "probe bench level 0", "kind": "hat", "dtype": "bfloat16",
+     "shape": (6, 50, 90, 50, 90)},
+    {"name": "probe bench level 0", "kind": "hat", "dtype": "float32",
+     "shape": (6, 50, 90, 50, 90)},
+    {"name": "dense", "kind": "dense", "dtype": "bfloat16",
+     "shape": (2, 20, 30, 50, 90)},
+    {"name": "dense", "kind": "dense", "dtype": "float32",
+     "shape": (2, 20, 30, 50, 90)},
+    {"name": "ragged", "kind": "dense", "dtype": "float32",
+     "shape": (2, 7, 13, 11, 37)},
+    {"name": "ragged", "kind": "hat", "dtype": "bfloat16",
+     "shape": (2, 7, 13, 11, 37)},
+    {"name": "wide", "kind": "dense", "dtype": "float32",
+     "shape": (1, 2, 3, 20, 700)},
+)
+LOOKUP_MAIN_CASE = 0      # the kernels line quotes the bf16 bench case
+# tolerance: |kernel - plain| <= 2^-13 S elementwise, S the same function
+# of |wy|, |corr| (and |wx|): float32 sums of n <= 1,024 terms in other
+# orders; the fused result of bf16 inputs adds one bf16 ulp of t carried
+# through |wx| (t rounds after sums in another order)
+LOOKUP_ORDER_REL = 2.0 ** -13
+# timed calls of each arm in the probe runs (launches: one warm-up more)
+PROBE_STEPS = 20
+
+# -- the quantized tier: float32 forwards at 1x368x496, 12 iterations, card
+# vs CPU from one seeded init each. The int8 pyramid of identical inputs:
+# level 0 bit for bit, pooled levels one step at most in this share
+QUANT_MODEL_SHAPE = (368, 496)
+QUANT_INT8_MAX_SHARE = 1e-3
+# the u8 pyramid of the same features, card vs CPU: one step at most, in
+# at most this share of a level's values (TF32 on the volume matmul must
+# move more)
+QUANT_U8_MAX_SHARE = 1e-4
+# (run, model, quant, RMD_FS_VOLUME_GIB, launches per forward): raft/fs at
+# 0.01 GiB windows levels 0-1 and quantizes the volumes of levels 2-3
+QUANT_RUNS = (
+    ("raft u8", "raft", "u8", None, {"convex_combine_8x": 1}),
+    ("raft i8", "raft", "i8", None, {"convex_combine_8x": 1}),
+    ("fs u8", "fs", "u8", "0.01",
+     {"convex_combine_8x": 1, "windowed_corr_pyramid": FS_ITERATIONS}),
+)
+# card vs CPU flows, relative to their largest |value|, with the card's
+# volumes built from the CPU's feature maps (features a few ulps apart
+# quantize one step apart here and there; those runs are read beside:
+# 1.2e-3 / 2.6e-3 / 3.6e-3 px on the first iteration). The first iteration
+# looks the volumes up at integer positions, where the hat weights are
+# exact: H100 runs read 1.5e-5 / 1.8e-5 px on 6.7 px (raft u8 / i8) and
+# 3.7e-5 px on 9.1 px (raft/fs u8), 2.3e-6-4.1e-6 of the flow; TF32 read
+# 1.1e-2 / 1.1e-2 / 3.2e-2 px. From the second iteration on, the quantized
+# lookup rounds its hat weights and t to bf16 (as the JAX tier does), so
+# it jumps where a position crosses a rounding point, and 12 iterations
+# carry the card-vs-CPU differences far: 0.074 / 0.065 px on 70 px and
+# 0.81 px on 92 px on the final flow, TF32 only 1.8x / 4x further. So
+# TF32 must break the first iteration's bound (4.9-8.7x the readings); the
+# final flow's is 2.4x / 1.7x its readings and under the tier's own effect
+# (0.29 / 0.37 / 3.6 px)
+QUANT_MODEL_REL = {
+    "first": {"raft u8": 2e-5, "raft i8": 2e-5, "fs u8": 2e-5},
+    "final": {"raft u8": 2.5e-3, "raft i8": 2.5e-3, "fs u8": 1.5e-2},
+}
 
 def emit(**fields):
     print(json.dumps(fields), flush=True)
@@ -692,16 +784,17 @@ def _step_problems(r, bounds):
 
 
 def _zero_counts():
-    from raft_meets_dicl_tpu_torch.ops import convex, sample, windowed
+    from raft_meets_dicl_tpu_torch.ops import convex, lookup, sample, windowed
 
     convex.launches = convex.bwd_launches = 0
     sample.launches = sample.bwd_launches = 0
     windowed.launches = windowed.df1_launches = windowed.df2_launches = 0
+    lookup.stage1_launches = lookup.fused_launches = 0
 
 
 def _counts():
     """Every kernel's launch count, by the name in the kernels line."""
-    from raft_meets_dicl_tpu_torch.ops import convex, sample, windowed
+    from raft_meets_dicl_tpu_torch.ops import convex, lookup, sample, windowed
 
     return {"convex_combine_8x": convex.launches,
             "convex_combine_8x_bwd": convex.bwd_launches,
@@ -709,14 +802,17 @@ def _counts():
             "sample_window_bwd": sample.bwd_launches,
             "windowed_corr_pyramid": windowed.launches,
             "windowed_corr_pyramid_df1": windowed.df1_launches,
-            "windowed_corr_pyramid_df2": windowed.df2_launches}
+            "windowed_corr_pyramid_df2": windowed.df2_launches,
+            "lookup_stage1": lookup.stage1_launches,
+            "lookup_fused": lookup.fused_launches}
 
 
 def _expect(**launches):
     """Every kernel's expected launch count: ``launches``, else 0."""
     names = ("convex_combine_8x", "convex_combine_8x_bwd", "sample_window",
              "sample_window_bwd", "windowed_corr_pyramid",
-             "windowed_corr_pyramid_df1", "windowed_corr_pyramid_df2")
+             "windowed_corr_pyramid_df1", "windowed_corr_pyramid_df2",
+             "lookup_stage1", "lookup_fused")
     return {name: launches.get(name, 0) for name in names}
 
 
@@ -1748,12 +1844,338 @@ def phase_fs_train(card):
     return readings["launches"]
 
 
+# -- the lookup probe (phase 19) and the quantized tier (phase 20) ------------
+
+def _lookup_inputs(case, gen):
+    """wy, corr, wx for one case: the probe's own hat inputs
+    (``make_inputs``, ``np.random.RandomState(0)``) or dense randn ones."""
+    from raft_meets_dicl_tpu_torch.scripts import probe_fused_lookup as probe
+
+    b, ni, nj, h2, w2 = case["shape"]
+    dtype = getattr(torch, case["dtype"])
+    if case["kind"] == "hat":
+        return probe.make_inputs(b, ni, nj, h2, w2, dtype, "cuda")
+    return tuple(torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+                 for shape in ((b, ni, nj, 9, h2), (b, ni, nj, h2, w2),
+                               (b, ni, nj, 9, w2)))
+
+
+def _lookup_share(out, ref, bound):
+    err = (out - ref).abs()
+    return err.max().item(), (err / bound.clamp(min=1e-30)).max().item()
+
+
+def _lookup_probe_run(dtype):
+    """The port's probe entry point as a user runs it (its own process,
+    so its launch counts start at 0): returns its result line."""
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "raft_meets_dicl_tpu_torch.scripts.probe_fused_lookup",
+         "--dtype", dtype, "--steps", str(PROBE_STEPS)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"probe --dtype {dtype} exited "
+                             f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    result = json.loads(proc.stdout.strip().splitlines()[-1])["probe"]
+    expected = {"lookup_stage1": PROBE_STEPS + 1,
+                "lookup_fused": PROBE_STEPS + 1}
+    if result["launches"] != expected:
+        raise AssertionError(f"probe --dtype {dtype}: launches "
+                             f"{result['launches']}, expected {expected}")
+    for name in "BCD":
+        if not result["arms"][name]["share"] <= 1.0:
+            raise AssertionError(f"probe --dtype {dtype}: arm {name} "
+                                 f"{result['arms'][name]}")
+    return result
+
+
+def phase_lookup_kernels(card):
+    """lookup_stage1 and lookup_fused against their plain versions on the
+    card, TF32 and cuBLAS's reduced-precision bf16 reductions off, at the
+    probe's bench case (bf16, f32), dense, ragged and wide cases; each
+    timed beside the plain version, its bound and the torch.matmul pair
+    (arm A). Then the probe entry point itself, bf16 (the main path) and
+    f32, as subprocesses."""
+    from raft_meets_dicl_tpu_torch.ops import lookup
+    from raft_meets_dicl_tpu_torch.scripts.probe_fused_lookup import (
+        bf16_ulp_term,
+    )
+
+    set_tf32(False)
+    matmul = torch.backends.cuda.matmul
+    matmul.allow_bf16_reduced_precision_reduction = False
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    cases = []
+    try:
+        for case in LOOKUP_CASES:
+            dtype = getattr(torch, case["dtype"])
+            bf16 = dtype == torch.bfloat16
+            wy, corr, wx = _lookup_inputs(case, gen)
+            before = (lookup.stage1_launches, lookup.fused_launches)
+            t = lookup.lookup_stage1(wy, corr)
+            out = lookup.lookup_fused(wy, corr, wx)
+            torch.cuda.synchronize()
+            if (lookup.stage1_launches, lookup.fused_launches) \
+                    != (before[0] + 1, before[1] + 1):
+                raise AssertionError("lookup kernels did not launch")
+            absw = (wy.float().abs(), corr.float().abs(), wx.float().abs())
+            ref_t = lookup.lookup_stage1_reference(wy, corr)
+            s1 = lookup.lookup_stage1_reference(*absw[:2])
+            err_t, share_t = _lookup_share(t, ref_t, LOOKUP_ORDER_REL * s1)
+            ref = lookup.lookup_fused_reference(wy, corr, wx)
+            s = lookup.lookup_fused_reference(*absw)
+            ulp = (bf16_ulp_term(ref_t.to(dtype), wx) if bf16
+                   else torch.zeros_like(s))
+            err, share = _lookup_share(out, ref, LOOKUP_ORDER_REL * s + ulp)
+            # the library call computes the same functions (stage 1 in the
+            # inputs' dtype: bf16 t, one rounding)
+            lib_t = torch.matmul(wy, corr)
+            lib = torch.matmul(lib_t.float(), wx.float().transpose(-1, -2))
+            lib_t_err, lib_t_share = _lookup_share(
+                lib_t.float(), ref_t, LOOKUP_ORDER_REL * s1
+                + (_bf16_ulp(ref_t) if bf16 else 0.0))
+            lib_err, lib_share = _lookup_share(lib, ref,
+                                               LOOKUP_ORDER_REL * s + ulp)
+            del absw, s1, s, ulp, lib_t, lib
+            if not max(share_t, share, lib_t_share, lib_share) <= 1.0:
+                raise AssertionError(
+                    f"lookup {case}: stage 1 {err_t} ({share_t} of its "
+                    f"bound), fused {err} ({share}), library {lib_t_share} "
+                    f"/ {lib_share}")
+
+            ms_t = gpu_timer_ms(lambda: lookup.lookup_stage1(wy, corr))
+            ms = gpu_timer_ms(lambda: lookup.lookup_fused(wy, corr, wx))
+            plain_t_ms = gpu_timer_ms(
+                lambda: lookup.lookup_stage1_reference(wy, corr))
+            plain_ms = gpu_timer_ms(
+                lambda: lookup.lookup_fused_reference(wy, corr, wx))
+            lib_t_ms = gpu_timer_ms(lambda: torch.matmul(wy, corr))
+            lib_ms = gpu_timer_ms(lambda: torch.matmul(
+                torch.matmul(wy, corr).float(),
+                wx.float().transpose(-1, -2)))
+
+            b, ni, nj, h2, w2 = case["shape"]
+            n, k = b * ni * nj, 9
+            size = wy.element_size()
+            ops_t = 2 * n * k * h2 * w2
+            bound_t = _wcp_bound((wy.numel() + corr.numel()) * size
+                                 + t.numel() * 4, ops_t, dtype)
+            bound = _wcp_bound((wy.numel() + corr.numel() + wx.numel())
+                               * size + out.numel() * 4,
+                               ops_t + 2 * n * k * k * w2, dtype)
+            record = dict(
+                case=case["name"], kind=case["kind"], dtype=case["dtype"],
+                shape=dict(zip(("b", "ni", "nj", "h2", "w2"), case["shape"])),
+                stage1_max_abs_err=err_t, stage1_err_over_bound=share_t,
+                stage1_ms=ms_t, stage1_plain_ms=plain_t_ms,
+                stage1_library_ms=lib_t_ms, stage1_bound_ms=bound_t[0],
+                stage1_bound_by=bound_t[1], stage1_f32_cores_ms=bound_t[2],
+                fused_max_abs_err=err, fused_err_over_bound=share,
+                fused_ms=ms, fused_plain_ms=plain_ms, fused_library_ms=lib_ms,
+                fused_bound_ms=bound[0], fused_bound_by=bound[1],
+                fused_f32_cores_ms=bound[2],
+                library_err_over_bound=max(lib_t_share, lib_share))
+            cases.append(record)
+            emit(phase="kernel-check", kernel="lookup", tf32=False,
+                 card=card, **record)
+            del wy, corr, wx, t, out, ref_t, ref
+            torch.cuda.empty_cache()
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = True
+
+    probe = {}
+    for dtype in ("bf16", "f32"):
+        probe[dtype] = _lookup_probe_run(dtype)
+        emit(phase="lookup-probe", card=card, **probe[dtype])
+    return {"cases": cases, "probe": probe,
+            "paths": {"probe": probe["bf16"]["launches"],
+                      "probe_f32": probe["f32"]["launches"]}}
+
+
+def _quant_forward(model, weights, quant, img1, img2, device,
+                   features=None):
+    """One eval forward of ``model`` (``"raft"`` or ``"fs"``, float32) with
+    ``weights`` and ``quant``. The feature maps each volume is built from
+    (the inputs of ``correlation_pyramid_direct`` and
+    ``correlation_pyramid_int8`` in raft, of each ``correlation_volume``
+    in raft/fs) are recorded; with ``features`` (another run's record)
+    they are replaced by those, so the volumes are computed on this device
+    from the other's features. Returns ((first iteration's flow, final
+    flow) on the CPU, the record, launches)."""
+    from raft_meets_dicl_tpu_torch import evaluation
+    from raft_meets_dicl_tpu_torch.models.impls import raft, raft_fs
+
+    targets = ([(raft, "correlation_pyramid_direct"),
+                (raft.quant_ops, "correlation_pyramid_int8")]
+               if model == "raft" else [(raft_fs, "correlation_volume")])
+    seen = []
+
+    def wrap(original):
+        def call(f1, f2, *args, **kwargs):
+            if features is not None:
+                f1, f2 = (f.to(f1.device) for f in features[len(seen)])
+            seen.append((f1.cpu(), f2.cpu()))
+            return original(f1, f2, *args, **kwargs)
+        return call
+
+    spec = _load_raft(False) if model == "raft" else _load_fs()
+    spec.model.module.load_state_dict(weights)
+    spec.model.module.to(device).eval()
+    step = evaluation.make_eval_fn(spec.model, {"quant": quant})
+    saved = [(obj, name, getattr(obj, name)) for obj, name in targets]
+    for obj, name, original in saved:
+        setattr(obj, name, wrap(original))
+    try:
+        _zero_counts()
+        raw, flow = step(img1.to(device), img2.to(device))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        counts = _counts()
+    finally:
+        for obj, name, original in saved:
+            setattr(obj, name, original)
+    return (raw[0].cpu(), flow.cpu()), seen, counts
+
+
+def phase_quant(card):
+    """The quantized matching tier on the card against the CPU, TF32 off:
+    the int8 and u8 pyramids and u8/i8 levels of identical inputs (the int8
+    dot is exact), then the raft/baseline f32 forward with u8 and i8 and
+    raft/fs with u8 at a split with volumes, each against the CPU's forward
+    from the same weights (the card's volumes from the CPU's features) and
+    against the card's unquantized flow; the same forward with TF32 must
+    break the first iteration's bound."""
+    from raft_meets_dicl_tpu_torch.ops import quant
+    from raft_meets_dicl_tpu_torch.ops.corr import correlation_pyramid_direct
+
+    set_tf32(False)
+    # 1. identical inputs: the card's quantized pyramid is the CPU's
+    rng = np.random.default_rng(20)
+    f1, f2 = (torch.from_numpy(rng.standard_normal(
+        (1, 46, 62, 256)).astype(np.float32)) for _ in range(2))
+    f2[..., 7] *= 30.0
+    cpu = quant.correlation_pyramid_int8(f1, f2, 4)
+    gpu = quant.correlation_pyramid_int8(f1.cuda(), f2.cuda(), 4)
+    pyramid = []
+    for lvl, (c, g) in enumerate(zip(cpu, gpu)):
+        step = (g.values.cpu().int() - c.values.int()).abs()
+        scale_rel = ((g.scale.cpu() - c.scale).abs() / c.scale).max().item()
+        pyramid.append(dict(level=lvl, shape=list(c.values.shape),
+                            max_step=step.max().item(),
+                            share_differing=(step > 0).float().mean().item(),
+                            scale_rel_diff=scale_rel))
+        if (lvl == 0 and step.max().item() != 0) or step.max().item() > 1 \
+                or (step > 0).float().mean().item() > QUANT_INT8_MAX_SHARE:
+            raise AssertionError(f"int8 pyramid level {lvl}: {pyramid[-1]}")
+    vol = torch.from_numpy(rng.standard_normal(
+        (2, 46, 62, 23, 31)).astype(np.float32))
+    for mode in ("u8", "i8"):
+        c, g = quant.quantize_level(vol, mode), \
+            quant.quantize_level(vol.cuda(), mode)
+        if not (torch.equal(c.values, g.values.cpu())
+                and torch.equal(c.scale, g.scale.cpu())):
+            raise AssertionError(f"quantize_level {mode}: card != CPU")
+    # the u8 pyramid of one pair of feature maps: the card's float32 volume
+    # matmul sums in another order than the CPU's, so a value at a
+    # rounding tie may land one step apart; TF32 on that matmul moves many
+    u8 = {}
+    cpu = quant.quantize_pyramid(correlation_pyramid_direct(f1, f2, 4), "u8")
+    for tf32 in (False, True):
+        set_tf32(tf32)
+        gpu = quant.quantize_pyramid(
+            correlation_pyramid_direct(f1.cuda(), f2.cuda(), 4), "u8")
+        steps = [(g.values.cpu().int() - c.values.int()).abs()
+                 for c, g in zip(cpu, gpu)]
+        u8["tf32" if tf32 else "f32"] = dict(
+            max_step=max(s.max().item() for s in steps),
+            share_differing=max((s > 0).float().mean().item()
+                                for s in steps))
+    set_tf32(False)
+    if not (u8["f32"]["max_step"] <= 1
+            and u8["f32"]["share_differing"] <= QUANT_U8_MAX_SHARE
+            < u8["tf32"]["share_differing"]):
+        raise AssertionError(f"u8 pyramid card vs CPU: {u8} (share bound "
+                             f"{QUANT_U8_MAX_SHARE}, which TF32 must break)")
+
+    # 2. the models, one seeded init each
+    rng = np.random.default_rng(21)
+    h, w = QUANT_MODEL_SHAPE
+    img1, img2 = (torch.from_numpy(rng.uniform(-1, 1, (1, h, w, 3))
+                                   .astype(np.float32)) for _ in range(2))
+    weights = {}
+    for model, spec in (("raft", _load_raft(False)), ("fs", _load_fs())):
+        spec.model.init(torch.Generator().manual_seed(0), device="cpu")
+        weights[model] = spec.model.module.state_dict()
+
+    runs, problems, launches = [], [], {}
+    for name, model, quant_mode, gib, expected in QUANT_RUNS:
+        def forward(quant_mode, device, features=None):
+            return _quant_forward(model, weights[model], quant_mode, img1,
+                                  img2, device, features)
+
+        with _volume_budget(gib):
+            plain, _, _ = forward(None, "cuda")
+            t0 = time.perf_counter()
+            with torch.backends.mkldnn.flags(enabled=False):
+                cpu, feats, _ = forward(quant_mode, "cpu")
+            cpu_s = time.perf_counter() - t0
+            own, _, counts = forward(quant_mode, "cuda")
+            # the card's volumes from the CPU's features: what is left is
+            # the volume matmul's summation order, the quantized lookup and
+            # the recurrence, without the value flips that features a few
+            # ulps apart cause
+            held, _, _ = forward(quant_mode, "cuda", feats)
+            set_tf32(True)
+            tf32, _, _ = forward(quant_mode, "cuda", feats)
+            set_tf32(False)
+        run = dict(run=name, quant=quant_mode, budget_gib=gib,
+                   launches_per_forward=counts, cpu_forward_s=round(cpu_s, 3))
+        # [0]: the first iteration (looked up at integer positions: exact
+        # hat weights); [1]: the final flow
+        for it, label in ((0, "first"), (1, "final")):
+            scale = max(cpu[it].abs().max().item(), 1.0)
+            run[label] = dict(
+                max_abs_flow_px=scale,
+                bound_px=QUANT_MODEL_REL[label][name] * scale,
+                max_abs_diff_px=(held[it] - cpu[it]).abs().max().item(),
+                own_features_max_abs_diff_px=(own[it] - cpu[it]).abs().max()
+                .item(),
+                tf32_max_abs_diff_px=(tf32[it] - cpu[it]).abs().max().item(),
+                quant_effect_px=(own[it] - plain[it]).abs().max().item())
+        runs.append(run)
+        launches[name] = counts
+        first, final = run["first"], run["final"]
+        if counts != _expect(**expected):
+            problems.append(f"{name}: launched {counts}, expected "
+                            f"{_expect(**expected)}")
+        if not all(torch.isfinite(f).all() for f in (*own, *cpu)):
+            problems.append(f"{name}: non-finite flow")
+        for label, r in (("first", first), ("final", final)):
+            if not r["max_abs_diff_px"] <= r["bound_px"]:
+                problems.append(f"{name}: {label} flow card vs CPU "
+                                f"{r['max_abs_diff_px']} px > {r['bound_px']}")
+            if not r["quant_effect_px"] > r["bound_px"]:
+                problems.append(f"{name}: the tier moves the {label} flow no "
+                                f"further than the bound "
+                                f"({r['quant_effect_px']} px)")
+        if not first["tf32_max_abs_diff_px"] > first["bound_px"]:
+            problems.append(f"{name}: the TF32 forward stays inside the first "
+                            f"iteration's bound "
+                            f"({first['tf32_max_abs_diff_px']} px)")
+    emit(phase="quant", shape=[1, h, w], iterations=12, tf32=False,
+         int8_pyramid=pyramid, u8_pyramid=u8, runs=runs, card=card)
+    if problems:
+        raise AssertionError("quant phase: " + "; ".join(problems))
+    return launches
+
+
 def kernels_line(results):
-    """The seven kernels with their checks, times and launches.
-    ``launches`` is the count of the ``main train`` run of the slice that
-    ported the kernel (ctf-l3's for the convex and sampler kernels,
-    raft/fs's for the windowed correlation); ``launches_by_path`` has every
-    path's count."""
+    """The nine kernels with their checks, times and launches.
+    ``launches`` is the count of the main path of the slice that ported
+    the kernel (ctf-l3's ``main train`` for the convex and sampler kernels,
+    raft/fs's for the windowed correlation, the probe's bf16 run for the
+    lookup kernels); ``launches_by_path`` has every path's count."""
     raft_train = results["phase_train"]
     paths = {
         "raft_model": {"convex_combine_8x": results["phase_model"]},
@@ -1771,6 +2193,9 @@ def kernels_line(results):
         "fs_serve": results["phase_fs_serve"],
         "fs_train_step": results["phase_fs_train_step"],
         "fs_train": results["phase_fs_train"],
+        **results["phase_lookup_kernels"]["paths"],
+        **{f"quant {run}": counts
+           for run, counts in results["phase_quant"].items()},
     }
 
     def launches(name):
@@ -1883,7 +2308,7 @@ def kernels_line(results):
                      "ulp of the larger value",
         "shape": sw_shape,
         "cases": sw_cases,
-    }] + _wcp_entries(results, launches)
+    }] + _wcp_entries(results, launches) + _lookup_entries(results, launches)
 
 
 def _wcp_entries(results, launches):
@@ -1940,6 +2365,57 @@ def _wcp_entries(results, launches):
     }]
 
 
+def _lookup_entries(results, launches):
+    """The two lookup kernels, quoting the probe's bf16 bench case (the
+    path whose launches they report: the probe's bf16 run)."""
+    phase = results["phase_lookup_kernels"]
+    cases = phase["cases"]
+    main = cases[LOOKUP_MAIN_CASE]
+    probe = phase["probe"]["bf16"]["launches"]
+    shape = (f"{main['dtype']} wy (B, NI, NJ, 9, H2), corr (B, NI, NJ, H2, "
+             f"W2), wx (B, NI, NJ, 9, W2) at {main['shape']} (the probe's "
+             "bench case: level 0 of batch 6 at 400x720, hat inputs)")
+    common = dict(route="cuda",
+                  source="raft_meets_dicl_tpu_torch/csrc/fused_lookup.cu",
+                  shape=shape, cases=cases)
+    return [{
+        "name": "lookup_stage1",
+        "replaces": "scripts/probe_fused_lookup.py:93",
+        "launches": probe["lookup_stage1"],
+        "launches_by_path": launches("lookup_stage1"),
+        "max_abs_err": max(c["stage1_max_abs_err"] for c in cases),
+        "max_err_over_bound": max(c["stage1_err_over_bound"]
+                                  for c in cases),
+        "ms": main["stage1_ms"], "plain_ms": main["stage1_plain_ms"],
+        "bound_ms": main["stage1_bound_ms"],
+        "bound_by": main["stage1_bound_by"],
+        "f32_cores_ms": main["stage1_f32_cores_ms"],
+        "library_ms": main["stage1_library_ms"],
+        "library_note": "torch.matmul(wy, corr) in the inputs' dtype (arm "
+                        "A's first matmul; bf16 output for bf16 inputs)",
+        "tolerance": "|diff| <= 2^-13 S elementwise, S = the plain stage 1 "
+                     "of |wy|, |corr| (float32 summation order)",
+        **common,
+    }, {
+        "name": "lookup_fused",
+        "replaces": "scripts/probe_fused_lookup.py:112",
+        "launches": probe["lookup_fused"],
+        "launches_by_path": launches("lookup_fused"),
+        "max_abs_err": max(c["fused_max_abs_err"] for c in cases),
+        "max_err_over_bound": max(c["fused_err_over_bound"] for c in cases),
+        "ms": main["fused_ms"], "plain_ms": main["fused_plain_ms"],
+        "bound_ms": main["fused_bound_ms"],
+        "bound_by": main["fused_bound_by"],
+        "f32_cores_ms": main["fused_f32_cores_ms"],
+        "library_ms": main["fused_library_ms"],
+        "library_note": "arm A: torch.matmul(wy, corr), then "
+                        "torch.matmul(t.float(), wx.float().mT)",
+        "tolerance": "|diff| <= 2^-13 S + sum_w ulp_bf16(t) |wx| "
+                     "elementwise (bf16 inputs; float32: 2^-13 S), S = the "
+                     "plain fused function of |wy|, |corr|, |wx|",
+        **common,
+    }]
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1972,7 +2448,8 @@ def main():
               phase_train_step, phase_train, phase_sw_kernels,
               phase_ctf_model, phase_ctf_serve, phase_ctf_train_step,
               phase_ctf_train, phase_wcp_kernels, phase_fs_model,
-              phase_fs_serve, phase_fs_train_step, phase_fs_train)
+              phase_fs_serve, phase_fs_train_step, phase_fs_train,
+              phase_lookup_kernels, phase_quant)
     for phase in phases:
         run(phase)
     if failed:

@@ -26,6 +26,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...ops import quant as quant_ops
 from ...ops.corr import (
     correlation_pyramid_direct,
     flatten_levels,
@@ -255,13 +256,20 @@ class RaftModule(nn.Module):
 
     def forward(self, img1, img2, train=False, frozen_bn=False, iterations=12,
                 upnet=True, corr_flow=False, corr_grad_stop=False,
-                mask_costs=()):
+                mask_costs=(), quant=None, quant_clip=1.0):
         """img1, img2: (B, H, W, 3). Returns the list of per-iteration
         (B, H, W, 2) flows; with ``corr_flow`` also the per-level
         soft-argmax flows, coarse to fine, before it. ``train`` turns on
         dropout and batch-norm batch statistics, ``frozen_bn`` keeps batch
         norm on its running statistics while training;
-        ``corr_grad_stop`` stops the gradient into the lookup."""
+        ``corr_grad_stop`` stops the gradient into the lookup.
+
+        ``quant`` picks the quantized matching tier (``ops.quant``,
+        inference only): ``u8`` stores the same pyramid at one byte an
+        element, ``i8`` also computes the correlation as int8 dots; the
+        lookup dequantizes. ``quant_clip`` is the fraction of each level's
+        abs-max the quantized range spans. None leaves the forward as it
+        is without the tier."""
         hdim = self.hidden_dim
         dt = self.compute_dtype
         x1, x2 = _nchw(img1), _nchw(img2)
@@ -269,8 +277,17 @@ class RaftModule(nn.Module):
         fmap1, fmap2 = self.fnet((x1, x2), train, frozen_bn)
         if dt is None:
             fmap1, fmap2 = fmap1.float(), fmap2.float()
-        pyramid = correlation_pyramid_direct(
-            _nhwc(fmap1), _nhwc(fmap2), self.corr_levels, dtype=dt)
+        qmode = quant_ops.normalize_mode(quant)
+        if qmode == "i8":
+            pyramid = quant_ops.correlation_pyramid_int8(
+                _nhwc(fmap1), _nhwc(fmap2), self.corr_levels,
+                clip=quant_clip)
+        else:
+            pyramid = correlation_pyramid_direct(
+                _nhwc(fmap1), _nhwc(fmap2), self.corr_levels, dtype=dt)
+            if qmode == "u8":
+                pyramid = quant_ops.quantize_pyramid(pyramid, qmode,
+                                                     clip=quant_clip)
 
         ctx = self.cnet(x1, train, frozen_bn)
         h = torch.tanh(ctx[:, :hdim])

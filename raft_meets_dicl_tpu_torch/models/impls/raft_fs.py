@@ -21,9 +21,12 @@ names the scan body ``ScanCheckpoint_FsStep_0``.
 The GRU iterations are a Python loop that starts each iteration from the
 carried flow with its gradient stopped; the convex 8x upsampling runs once
 per forward over all iterations. There is no activation checkpointing (the
-JAX ``nn.remat`` fits the TPU's memory, not the numerics). The ladder and
-quantized-tier arguments (``flow_init``, ``hidden_init``,
-``return_state``, ``quant``) are not ported (ROADMAP slice 7).
+JAX ``nn.remat`` fits the TPU's memory, not the numerics). The ladder
+arguments (``flow_init``, ``hidden_init``, ``return_state``) are not
+ported (ROADMAP slice 7). ``quant`` (the quantized matching tier,
+``ops.quant``) stores the materialized coarse suffix of volumes at one
+byte an element; the windowed prefix has no volume to quantize, so both
+modes are storage quantization here, as in the JAX module.
 
 Mixed precision (``mixed-precision: true``) follows the JAX policy: the
 encoders and the update block compute in bf16, the feature maps stay bf16
@@ -35,6 +38,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...ops import quant as quant_ops
 from ...ops.corr import (
     correlation_volume,
     flatten_levels,
@@ -121,15 +125,16 @@ class RaftFsModule(nn.Module):
 
     def forward(self, img1, img2, train=False, frozen_bn=False, iterations=12,
                 upnet=True, mask_costs=(), flow_init=None, hidden_init=None,
-                return_state=False, quant=None):
+                return_state=False, quant=None, quant_clip=1.0):
         """img1, img2: (B, H, W, 3). Returns the list of per-iteration
         (B, H, W, 2) flows. ``train`` turns on dropout and batch-norm batch
         statistics, ``frozen_bn`` keeps batch norm on its running
-        statistics while training."""
+        statistics while training. ``quant`` (``u8``/``i8``, inference
+        only) quantizes the volume levels, ``quant_clip`` the fraction of
+        each level's abs-max the quantized range spans."""
         for name, value in (("flow_init", flow_init),
                             ("hidden_init", hidden_init),
-                            ("return_state", return_state or None),
-                            ("quant", quant)):
+                            ("return_state", return_state or None)):
             if value is not None:
                 raise NotImplementedError(
                     f"raft/fs: '{name}' is not ported yet (ROADMAP slice 7)")
@@ -160,6 +165,10 @@ class RaftFsModule(nn.Module):
         windowed = f2_pyramid[:n_win]
         volumes = [correlation_volume(f1, f2l, dtype=dt, normalize=False)
                    for f2l in f2_pyramid[n_win:]]
+        qmode = quant_ops.normalize_mode(quant)
+        if qmode is not None:
+            volumes = quant_ops.quantize_pyramid(volumes, qmode,
+                                                 clip=quant_clip)
 
         ctx = self.cnet(x1, train, frozen_bn)
         h = torch.tanh(ctx[:, :hdim])

@@ -1,8 +1,10 @@
-"""Compute layer: plain-torch correlation/pooling/upsampling ops and the
-hand-written CUDA kernels (``convex``, ``sample``, ``windowed``) with their
-build/load module (``cuda_build``)."""
+"""Compute layer: plain-torch correlation/pooling/upsampling ops, the
+quantized matching tier (``quant``) and the hand-written CUDA kernels
+(``convex``, ``sample``, ``windowed``, ``lookup``) with their build/load
+module (``cuda_build``)."""
 
-from . import convex, corr, cuda_build, pool, sample, upsample, windowed
+from . import (convex, corr, cuda_build, lookup, pool, quant, sample,
+               upsample, windowed)
 
-__all__ = ["convex", "corr", "cuda_build", "pool", "sample", "upsample",
-           "windowed"]
+__all__ = ["convex", "corr", "cuda_build", "lookup", "pool", "quant",
+           "sample", "upsample", "windowed"]

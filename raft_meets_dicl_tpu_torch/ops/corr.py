@@ -18,6 +18,8 @@ import math
 
 import torch
 
+from .quant import QuantizedLevel, zero_point
+
 
 def _pool2x_spatial(fmap):
     """Average-pool the H, W axes of a (B, H, W, C) feature map by 2
@@ -106,7 +108,24 @@ def _lookup_level(corr, x, y):
     Under the bf16 policy the hat weights are bf16 too and the first
     contraction rounds to bf16, as in the JAX package; the second, tiny
     one runs in float32.
+
+    ``corr`` may be a ``quant.QuantizedLevel`` (the quantized tier): its
+    integer values are converted and zero-shifted in bf16 (exact: they are
+    integers of at most 8 bits), contracted with bf16 hat weights, t
+    rounded to bf16, and the scale multiplies the (B, H1, W1, K, K) output
+    once, as in the JAX branch.
     """
+    if isinstance(corr, QuantizedLevel):
+        values, scale = corr
+        b, h1, w1, h2, w2 = values.shape
+        k = x.shape[-1]
+        wy = _interp_matrix(y, h2).to(torch.bfloat16).reshape(-1, k, h2)
+        wx = _interp_matrix(x, w2).to(torch.bfloat16).reshape(-1, k, w2)
+        deq = values.to(torch.bfloat16) - zero_point(values)
+        t = torch.matmul(wy, deq.reshape(-1, h2, w2))      # bf16
+        out = torch.matmul(t.float(), wx.float().transpose(1, 2))
+        return out.reshape(b, h1, w1, k, k) * scale
+
     b, h1, w1, h2, w2 = corr.shape
     k = x.shape[-1]
     wy = _interp_matrix(y, h2).to(corr.dtype).reshape(-1, k, h2)

@@ -464,7 +464,7 @@ _TINY = {"corr-levels": 2, "corr-radius": 4, "corr-channels": 32,
 @pytest.mark.parametrize("arg,value", [
     ("flow_init", torch.zeros(1, 8, 12, 2)),
     ("hidden_init", torch.zeros(1, 8, 8, 12)),
-    ("return_state", True), ("quant", "u8")])
+    ("return_state", True)])
 def test_raft_fs_refuses_unported_arguments(arg, value):
     spec = tmodels.load(_cfg(params=_TINY, iterations=1))
     spec.model.init(device="cpu")

@@ -147,6 +147,10 @@ def test_port_and_chip_smoke_import_no_jax():
     files = sorted((ROOT / "raft_meets_dicl_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    # the lookup kernels, the quantized tier and the scripts subpackage
+    for new in ("ops/lookup.py", "ops/quant.py", "scripts/__init__.py",
+                "scripts/probe_fused_lookup.py"):
+        assert ROOT / "raft_meets_dicl_tpu_torch" / new in files, new
     for path in files:
         for top in _imported_top_levels(path):
             # exact names: 'raft_meets_dicl_tpu_torch' is the port itself
