@@ -72,9 +72,12 @@ the card and fails (non-zero exit, no result line) on any fault:
    and df2 (``csrc/windowed_corr.cu``) against the plain version and its
    autograd on the card, TF32 off, at raft/fs's shapes (level 0 of the
    1080x1920 serve bucket at batch 2 and of the 2560x1072 train crop, bf16;
-   all 4 levels at 368x496 f32 and at 2560x1072 bf16; two ragged cases),
-   far windows exact zeros; each timed beside the plain version and its
-   bound;
+   all 4 levels at 368x496 f32 and at 2560x1072 bf16; two ragged cases;
+   all 4 levels at 2560x1072 again with a smooth flow and a motion
+   boundary), far windows exact zeros; each timed beside the plain
+   version and its bound; df2's tiles down each of its two paths, counted
+   by the kernel, equal to the rule ``df2_tile_paths`` computes from the
+   centres;
 15. fs model: ``raft/fs`` in float32, full width, 12 iterations, at
    1x368x496, card vs CPU from one seeded init at three budgets
    (``RMD_FS_VOLUME_GIB`` 0: every level windowed; 0.01: two; the
@@ -93,7 +96,8 @@ the card and fails (non-zero exit, no result line) on any fault:
 18. fs train: ``main train`` with the shipped raft/fs config and the
    hd1k-1080p stage's optimizer, schedule and clip, batch 1 at 2560x1072,
    8 steps, default budget (level 0 windowed): every loss finite, 12 + 12
-   + 12 windowed-correlation launches per step;
+   + 12 windowed-correlation launches per step; then the same run with
+   every level windowed (``RMD_FS_VOLUME_GIB`` 0): 12 + 12 + 48;
 19. lookup kernels: ``lookup_stage1`` and ``lookup_fused``
    (``csrc/fused_lookup.cu``) against their plain versions on the card,
    TF32 and cuBLAS's reduced-precision bf16 reductions off, at the
@@ -129,6 +133,7 @@ the card's ``nvidia-smi`` name/power-limit line, and last
 
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -295,8 +300,14 @@ WCP_TAPS = (2 * FS_RADIUS + 2) ** 2
 # kernel cases (b, h, w at the 1/8 grid; levels windowed; channels): the
 # 1080x1920 serve bucket at batch 2 and the 2560x1072 train crop at batch
 # 1 (level 0 alone, the default budget's split), both levels-all forms
-# (budget 0), and two ragged cases (odd sizes, other vector widths) with
-# far out-of-bounds centres
+# (budget 0), the latter again with a smooth flow, and two ragged cases
+# (odd sizes, other vector widths) with far out-of-bounds centres. Every
+# case but the smooth one centres its windows on the grid plus 4 N(0, 1)
+# px of noise drawn independently per position: neighbouring windows
+# overlap little, the harder regime for the df2 kernel's tiles. The smooth
+# flow (a field of up to 20 px at level 0 with one 40 px motion boundary)
+# is what a trained model's flow looks like: its tiles' windows overlap,
+# and the tiles astride the boundary take df2's direct path
 WCP_CASES = (
     {"name": "serve 1080x1920 b2, level 0", "dtype": "bfloat16",
      "shape": (2, 135, 240), "levels": 1, "c": FS_CHANNELS},
@@ -310,6 +321,9 @@ WCP_CASES = (
      "c": 96},
     {"name": "ragged", "dtype": "bfloat16", "shape": (2, 11, 9), "levels": 2,
      "c": 64},
+    {"name": "train 2560x1072 b1, smooth flow, all levels",
+     "dtype": "bfloat16", "shape": (1, 134, 320), "levels": 4,
+     "c": FS_CHANNELS, "flow": "smooth"},
 )
 WCP_MAIN_CASE = 1     # the kernels line quotes the 2560x1072 training case
 # tolerance: |kernel - plain| <= 1e-5 max|plain| + 2^-13 S, S the plain
@@ -1435,11 +1449,32 @@ def _wcp_inputs(case, gen):
         levels.append(avg_pool2d(levels[-1], 2))
     ys, xs = torch.meshgrid(torch.arange(h, device="cuda"),
                             torch.arange(w, device="cuda"), indexing="ij")
-    coords = torch.stack((xs, ys), dim=-1).float() \
-        + 4 * torch.randn(b, h, w, 2, device="cuda", generator=gen)
+    grid = torch.stack((xs, ys), dim=-1).float()
+    if case.get("flow") == "smooth":
+        coords = (grid + _smooth_flow(h, w, gen))[None].repeat(b, 1, 1, 1)
+    else:
+        coords = grid + 4 * torch.randn(b, h, w, 2, device="cuda",
+                                        generator=gen)
     for p, centre in zip(_wcp_far(case), SW_FAR):
         coords[p] = torch.tensor(centre[3:])
     return f1, levels, coords.contiguous()
+
+
+def _smooth_flow(h, w, gen):
+    """(h, w, 2) level-0 displacements: a low-frequency field of up to
+    20 px (two random-phase sinusoids per axis, a period of about the
+    grid) plus 40 px of x motion on one side of a slanted boundary."""
+    ys, xs = torch.meshgrid(
+        torch.arange(h, device="cuda", dtype=torch.float32) / h,
+        torch.arange(w, device="cuda", dtype=torch.float32) / w,
+        indexing="ij")
+    phase = 2 * math.pi * torch.rand(4, device="cuda", generator=gen)
+    u = 12 * torch.sin(2 * math.pi * xs + phase[0]) \
+        + 8 * torch.cos(2 * math.pi * 0.7 * ys + phase[1])
+    v = 12 * torch.sin(2 * math.pi * 0.8 * ys + phase[2]) \
+        + 8 * torch.cos(2 * math.pi * xs + phase[3])
+    moving = (xs - 0.45) + 0.6 * (ys - 0.5) > 0
+    return torch.stack((u + 40.0 * moving, v), dim=-1)
 
 
 def _wcp_far(case):
@@ -1508,9 +1543,20 @@ def phase_wcp_kernels(card):
         dout = torch.randn(out.shape, device="cuda", generator=gen)
         before = (windowed.df1_launches, windowed.df2_launches)
         df1 = windowed._launch_df1(dout, f1, levels, coords, r)
-        df2 = [windowed._launch_df2(dout, f1, lvl, coords, i, n_lvl, r)
+        counts = torch.zeros(n_lvl, 3, dtype=torch.int32, device="cuda")
+        df2 = [windowed._launch_df2(dout, f1, lvl, coords, i, n_lvl, r,
+                                    path_counts=counts[i])
                for i, lvl in enumerate(levels)]
         torch.cuda.synchronize()
+        # the tiles down each df2 path, counted by the kernel, against the
+        # kernel's rule computed from the centres
+        paths = counts.tolist()
+        rule = [list(windowed.df2_tile_paths(coords, i, *lvl.shape[1:3],
+                                             radius=r))
+                for i, lvl in enumerate(levels)]
+        if paths != rule:
+            raise AssertionError(f"windowed_corr_pyramid df2 {case}: tiles "
+                                 f"per path {paths}, the rule says {rule}")
         if (windowed.df1_launches, windowed.df2_launches) \
                 != (before[0] + 1, before[1] + n_lvl):
             raise AssertionError("windowed_corr_pyramid backward did not "
@@ -1579,7 +1625,9 @@ def phase_wcp_kernels(card):
             df1_ms=df1_ms, df1_bound_ms=bwd1[0], df1_bound_by=bwd1[1],
             df1_f32_cores_ms=bwd1[2],
             df2_max_abs_err=df2_err, df2_err_over_bound=df2_share,
-            df2_ms=df2_ms, df2_bound_ms=[x[0] for x in bwd2],
+            df2_ms=df2_ms, df2_paths=paths,
+            df2_tile_share=[p[0] / max(1, p[0] + p[1]) for p in paths],
+            df2_bound_ms=[x[0] for x in bwd2],
             df2_bound_by=[x[1] for x in bwd2],
             df2_f32_cores_ms=[x[2] for x in bwd2],
             plain_bwd_ms=plain_bwd_ms)
@@ -1803,10 +1851,11 @@ def phase_fs_train_step(card):
     return steps[FS_LEVELS]
 
 
-def phase_fs_train(card):
+def _fs_train(card, gib, n_windowed):
     """The train command with the shipped raft/fs config (bf16 policy,
     frozen batch norm) and the hd1k-1080p stage's optimizer, schedule and
-    clip, batch 1 at 2560x1072, default budget (level 0 windowed)."""
+    clip, batch 1 at 2560x1072, at ``RMD_FS_VOLUME_GIB`` ``gib``, whose
+    split must window ``n_windowed`` levels."""
     from raft_meets_dicl_tpu_torch.models.impls.raft_fs import (
         volume_level_split,
     )
@@ -1814,7 +1863,7 @@ def phase_fs_train(card):
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False
     h, w = FS_TRAIN_SHAPE
-    with _volume_budget(None):
+    with _volume_budget(gib):
         n_win = volume_level_split((FS_TRAIN_BATCH, h // 8, w // 8),
                                    FS_LEVELS, 2)
         readings, problems = _train_command(
@@ -1829,19 +1878,31 @@ def phase_fs_train(card):
         windowed_corr_pyramid_df1=FS_ITERATIONS * steps,
         windowed_corr_pyramid_df2=FS_ITERATIONS * n_win * steps,
         convex_combine_8x=steps, convex_combine_8x_bwd=steps)
-    if n_win != 1:
-        problems.append(f"split {n_win} at {h}x{w}, expected 1")
+    if n_win != n_windowed:
+        problems.append(f"split {n_win} at {h}x{w}, expected {n_windowed}")
     if readings["launches"] != expected:
         problems.append(f"kernels launched {readings['launches']}, expected "
                         f"{expected}")
     if problems:
         raise AssertionError("fs train phase: " + "; ".join(problems))
     emit(phase="fs-train", model="raft/fs (bf16 policy, frozen BN)",
-         iterations=FS_ITERATIONS, n_windowed=n_win,
+         volume_gib=gib, iterations=FS_ITERATIONS, n_windowed=n_win,
          cudnn_tf32=torch.backends.cudnn.allow_tf32,
          matmul_tf32=torch.backends.cuda.matmul.allow_tf32, card=card,
          **readings)
     return readings["launches"]
+
+
+def phase_fs_train(card):
+    """``main train`` of raft/fs at 2560x1072, default budget (level 0
+    windowed: 12 forward, 12 df1 and 12 df2 launches a step)."""
+    return _fs_train(card, None, 1)
+
+
+def phase_fs_train_all_levels(card):
+    """The same run with every level windowed (``RMD_FS_VOLUME_GIB`` 0:
+    12 forward, 12 df1 and 48 df2 launches a step)."""
+    return _fs_train(card, "0", FS_LEVELS)
 
 
 # -- the lookup probe (phase 19) and the quantized tier (phase 20) ------------
@@ -2193,6 +2254,7 @@ def kernels_line(results):
         "fs_serve": results["phase_fs_serve"],
         "fs_train_step": results["phase_fs_train_step"],
         "fs_train": results["phase_fs_train"],
+        "fs_train_all_levels": results["phase_fs_train_all_levels"],
         **results["phase_lookup_kernels"]["paths"],
         **{f"quant {run}": counts
            for run, counts in results["phase_quant"].items()},
@@ -2449,7 +2511,7 @@ def main():
               phase_ctf_model, phase_ctf_serve, phase_ctf_train_step,
               phase_ctf_train, phase_wcp_kernels, phase_fs_model,
               phase_fs_serve, phase_fs_train_step, phase_fs_train,
-              phase_lookup_kernels, phase_quant)
+              phase_fs_train_all_levels, phase_lookup_kernels, phase_quant)
     for phase in phases:
         run(phase)
     if failed:

@@ -88,3 +88,10 @@ def load(name):
             lib = ctypes.CDLL(str(path))
             _loaded[name] = lib
         return lib
+
+
+def aligned(t):
+    """``t`` contiguous and 16-byte aligned (the kernels' vector loads and
+    16-byte asynchronous copies), copied only where it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()

@@ -124,7 +124,8 @@ def _launch_stage1(wy, corr):
     global stage1_launches
 
     n, h2, w2 = _check_inputs(wy, corr)
-    wy, corr = wy.contiguous(), corr.contiguous()
+    # the kernel streams wy and corr with 16-byte copies
+    wy, corr = cuda_build.aligned(wy), cuda_build.aligned(corr)
     out = torch.empty((*wy.shape[:-1], w2), dtype=torch.float32,
                       device=wy.device)
     lib = _library()

@@ -36,6 +36,11 @@ from .corr import windowed_correlation
 KERNEL_RADIUS = 4
 # the most pyramid levels one launch takes
 KERNEL_MAX_LEVELS = 6
+# the df2 kernel's tiles (positions a side) and the largest bounding box
+# side of a tile's taps that it adds on the chip (the tile path); a tile
+# with a wider box adds each tap to df2 directly (csrc/windowed_corr.cu)
+DF2_TILE = 8
+DF2_MAX_BOX = 48
 
 # kernel launches made by this process (forward, df1, df2); reset freely
 launches = 0
@@ -70,16 +75,10 @@ def _library():
         fn.restype = i32
     for fn in (lib.wcp_df2_f32, lib.wcp_df2_bf16):
         # (dout, f1, coords, df2, level, n_levels, h2, w2, b, h, w, c,
-        #  radius, stream)
-        fn.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 9 + [ptr]
+        #  radius, path_counts or None, stream)
+        fn.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 9 + [ptr, ptr]
         fn.restype = i32
     return lib
-
-
-def _aligned(t):
-    """``t`` contiguous and 16-byte aligned (the kernels' vector loads)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check_inputs(f1, f2_levels, coords, radius):
@@ -148,8 +147,8 @@ def _launch(f1, f2_levels, coords, radius):
     global launches
 
     _check_inputs(f1, f2_levels, coords, radius)
-    f1, coords = _aligned(f1), coords.contiguous()
-    f2_levels = [_aligned(f2) for f2 in f2_levels]
+    f1, coords = cuda_build.aligned(f1), coords.contiguous()
+    f2_levels = [cuda_build.aligned(f2) for f2 in f2_levels]
     b, h, w, c = f1.shape
     k = 2 * radius + 1
     out = torch.empty((b, h, w, len(f2_levels) * k * k), dtype=torch.float32,
@@ -168,9 +167,9 @@ def _launch_df1(dout, f1, f2_levels, coords, radius):
     global df1_launches
 
     _check_inputs(f1, f2_levels, coords, radius)
-    dout = _aligned(dout.float())
+    dout = cuda_build.aligned(dout.float())
     coords = coords.contiguous()
-    f2_levels = [_aligned(f2) for f2 in f2_levels]
+    f2_levels = [cuda_build.aligned(f2) for f2 in f2_levels]
     b, h, w, c = f1.shape
     k = 2 * radius + 1
     if tuple(dout.shape) != (b, h, w, len(f2_levels) * k * k):
@@ -186,28 +185,78 @@ def _launch_df1(dout, f1, f2_levels, coords, radius):
     return df1
 
 
-def _launch_df2(dout, f1, f2, coords, level, n_levels, radius):
+def _launch_df2(dout, f1, f2, coords, level, n_levels, radius,
+                path_counts=None):
     """Run the df2 kernel for one level ``f2`` (only its shape is read):
-    ``dout`` (B, H, W, n_levels·K²) -> df2_level (B, H2, W2, C) float32,
-    every tap's share added with one atomic per tap and channel."""
+    ``dout`` (B, H, W, n_levels·K²) -> df2_level (B, H2, W2, C) float32.
+    With ``path_counts`` (an int32 CUDA tensor of 3 values) the kernel
+    adds the tiles it took down each path: tile, direct, no in-bounds tap
+    (the rule of ``df2_tile_paths``)."""
     global df2_launches
 
     _check_inputs(f1, [f2], coords, radius)
     f2_shape = tuple(f2.shape)
-    dout = _aligned(dout.float())
-    f1, coords = _aligned(f1), coords.contiguous()
+    dout = cuda_build.aligned(dout.float())
+    f1, coords = cuda_build.aligned(f1), coords.contiguous()
     b, h, w, c = f1.shape
     k = 2 * radius + 1
     if tuple(dout.shape) != (b, h, w, n_levels * k * k) \
             or not 0 <= level < n_levels:
         raise ValueError(f"windowed_corr_pyramid backward: dout "
                          f"{tuple(dout.shape)} at level {level} of {n_levels}")
+    if path_counts is not None and (
+            path_counts.dtype != torch.int32 or path_counts.numel() != 3
+            or path_counts.device != f1.device
+            or not path_counts.is_contiguous()):
+        raise ValueError("windowed_corr_pyramid backward: path_counts must "
+                         "be 3 contiguous int32 values on f1's device")
     df2 = torch.zeros(f2_shape, dtype=torch.float32, device=f1.device)
     _run(_kernel(_library(), "wcp_df2", f1.dtype), f1.device,
          dout.data_ptr(), f1.data_ptr(), coords.data_ptr(), df2.data_ptr(),
-         level, n_levels, f2_shape[1], f2_shape[2], b, h, w, c, radius)
+         level, n_levels, f2_shape[1], f2_shape[2], b, h, w, c, radius,
+         None if path_counts is None else path_counts.data_ptr())
     df2_launches += 1
     return df2
+
+
+def df2_tile_paths(coords, level, h2, w2, radius=KERNEL_RADIUS):
+    """The df2 kernel's choice of path for every tile of one level, computed
+    from the centres as the kernel does: (tiles on the tile path, tiles on
+    the direct path, tiles with no in-bounds tap).
+
+    A tile is DF2_TILE x DF2_TILE positions of one image; its box is the
+    bounding box of its windows' in-bounds taps at this level; it takes
+    the tile path when both box sides are at most DF2_MAX_BOX pixels."""
+    b, h, w, _ = coords.shape
+    cxy = coords.float() * (1.0 / 2 ** level)
+    cx = cxy[..., 0].clamp(-(radius + 1.0), float(w2 + radius))
+    cy = cxy[..., 1].clamp(-(radius + 1.0), float(h2 + radius))
+    x0 = torch.floor(cx).long() - radius
+    y0 = torch.floor(cy).long() - radius
+    taps = 2 * radius + 1
+    x_lo, x_hi = x0.clamp(min=0), (x0 + taps).clamp(max=w2 - 1)
+    y_lo, y_hi = y0.clamp(min=0), (y0 + taps).clamp(max=h2 - 1)
+    live = (x_lo <= x_hi) & (y_lo <= y_hi)
+    big = 1 << 40
+    t = DF2_TILE
+    th, tw = -(-h // t), -(-w // t)
+
+    def tile_reduce(v, fill, fn):
+        v = torch.where(live, v, torch.full_like(v, fill))
+        v = torch.nn.functional.pad(v, (0, tw * t - w, 0, th * t - h),
+                                    value=fill)
+        v = v.reshape(b, th, t, tw, t)
+        return fn(fn(v, dim=4), dim=2)
+
+    top = tile_reduce(y_lo, big, torch.amin)
+    bottom = tile_reduce(y_hi, -big, torch.amax)
+    left = tile_reduce(x_lo, big, torch.amin)
+    right = tile_reduce(x_hi, -big, torch.amax)
+    empty = top == big
+    fits = (bottom - top + 1 <= DF2_MAX_BOX) & (right - left + 1
+                                                <= DF2_MAX_BOX)
+    return (int((fits & ~empty).sum()), int((~fits & ~empty).sum()),
+            int(empty.sum()))
 
 
 class _WindowedCorrPyramid(torch.autograd.Function):

@@ -88,6 +88,12 @@ CASES = [
     ("hat", (2, 7, 13), 11, 37),
     ("dense", (2, 7, 13), 11, 37),
     ("dense", (1, 3, 5), 33, 12),
+    # the CUDA stage 1 copies each run of positions flat from a 16-byte
+    # boundary: an odd N, odd H2·W2 (bf16 blocks starting at 2-byte
+    # offsets) and W2 not a multiple of 8 (ragged column tiles)
+    ("dense", (1, 3, 7), 13, 21),
+    ("hat", (1, 1, 15), 17, 29),
+    ("dense", (2, 3, 4), 9, 23),
 ]
 
 

@@ -9,12 +9,20 @@ same numpy inputs.
   ``_wcp_bwd_interpret``, per-position and band forms); far out-of-bounds
   centres give exact zeros; coords get no gradient;
 - ``mask_costs`` and ``normalize`` against the JAX ``windowed_corr_pyramid``;
+- the plain df2 against the Pallas df2 in interpret mode in the two
+  coordinate regimes the CUDA df2 kernel tells apart (a smooth flow,
+  whose 8x8 tiles of positions take its tile path, and a motion
+  boundary, whose tiles astride it take its direct path), and the
+  kernel's rule for that choice (``df2_tile_paths``) against a direct
+  count;
 - ``avg_pool2d`` bit for bit in float32 and bf16;
 - the kernel route refuses CPU tensors and counts nothing on the CPU.
 
 Inputs: b2 16x24, C = 32, radius 4, 4 pooled levels, centres on the grid
 plus a spread of 8 px and a few far out-of-bounds centres.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -183,6 +191,131 @@ def test_plain_wcp_matches_pallas_interpret(band):
     assert len(df2) == LEVELS
     for got, exp, scale in zip(grads[1:], df2, scales[1:]):
         _check(got, exp, scale)
+
+
+def _df2_inputs(regime, dtype, c, seed=11):
+    """f1, f2 (level 0) and coords for one b1 8x96 grid as numpy float32
+    (bf16 inputs rounded once): the grid plus a smooth flow of a few px;
+    with ``"boundary"`` the positions from x = 60 on move 44 px left, so
+    the tile astride x = 60 spans a box wider than DF2_MAX_BOX."""
+    h, w = 8, 96
+    rs = np.random.RandomState(seed)
+    f1 = rs.randn(1, h, w, c).astype(np.float32)
+    f2 = rs.randn(1, h, w, c).astype(np.float32)
+    if dtype == "bfloat16":
+        f1 = torch.from_numpy(f1).to(torch.bfloat16).float().numpy()
+        f2 = torch.from_numpy(f2).to(torch.bfloat16).float().numpy()
+    gy, gx = np.meshgrid(np.arange(h, dtype=np.float32),
+                         np.arange(w, dtype=np.float32), indexing="ij")
+    phase = rs.rand(2) * 2 * np.pi
+    u = 3 * np.sin(2 * np.pi * gx / w + phase[0])
+    v = 2 * np.cos(2 * np.pi * gy / h + phase[1])
+    if regime == "boundary":
+        u = u - 44.0 * (gx >= 60)
+    coords = np.stack([gx + u, gy + v], -1)[None].astype(np.float32)
+    return f1, f2, coords
+
+
+REGIMES = ("smooth", "boundary")
+
+
+@functools.lru_cache(maxsize=None)
+def _df2_pallas(dtype, c):
+    """Both regimes as one batch of two images (the smooth one first) and
+    the Pallas df2 of its two levels in interpret mode (float32 before
+    the cast), computed once per dtype and C: f1, f2, coords, dout (numpy)
+    and the JAX df2 levels."""
+    f1, f2, coords = (np.concatenate(x) for x in zip(
+        *(_df2_inputs(regime, dtype, c) for regime in REGIMES)))
+    dout = np.random.RandomState(12).randn(2, 8, 96, 2 * 81) \
+        .astype(np.float32)
+    jdt = getattr(jnp, dtype)
+    jlevels = (jnp.asarray(f2, jdt), javg_pool2d(jnp.asarray(f2, jdt), 2))
+    _, jdf2 = jpallas._wcp_bwd_interpret(jnp.asarray(f1, jdt), jlevels,
+                                         jnp.asarray(coords),
+                                         jnp.asarray(dout), RADIUS)
+    return f1, f2, coords, dout, [np.asarray(x) for x in jdf2]
+
+
+@pytest.mark.parametrize("regime", REGIMES)
+@pytest.mark.parametrize("c", [32, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_df2_matches_pallas_interpret_in_both_tile_regimes(dtype, c,
+                                                                 regime):
+    """df2 of two levels, the plain autograd against the Pallas df2 kernel
+    in interpret mode (float32 before the cast), at the coordinates whose
+    tiles the CUDA df2 kernel adds on the chip (smooth) or directly
+    (astride the boundary). Bound: 1e-5 max|expected| + 2^-13 S, S the
+    plain df2 of |f1|, |f2_l|, |dout|, plus one bf16 ulp where the plain
+    gradient is bf16 (it rounds once)."""
+    f1, f2, coords, dout, jdf2 = _df2_pallas(dtype, c)
+    b = REGIMES.index(regime)
+    tc = torch.from_numpy(coords)
+    tf2 = torch.from_numpy(f2).to(getattr(torch, dtype))
+    tlevels = [tf2, tpool.avg_pool2d(tf2, 2)]
+    paths = [twindowed.df2_tile_paths(tc[b:b + 1], lvl, *x.shape[1:3])
+             for lvl, x in enumerate(tlevels)]
+    if regime == "smooth":
+        assert all(p[1] == 0 and p[0] > 0 for p in paths), paths
+    else:
+        assert paths[0][1] >= 1 and paths[0][0] >= 1, paths
+
+    tf1 = torch.from_numpy(f1).to(getattr(torch, dtype))
+    tlevels = [x.detach().requires_grad_(True) for x in tlevels]
+    out = twindowed.windowed_corr_pyramid_reference(tf1, tlevels, tc, RADIUS)
+    grads = torch.autograd.grad(out, tlevels, torch.from_numpy(dout))
+    levels_f32 = [x.detach().float().numpy() for x in tlevels]
+    scales = _plain_with_scale(f1, levels_f32, tc, torch.from_numpy(dout))
+    assert len(jdf2) == 2
+    for got, exp, scale in zip(grads, jdf2, scales[1:]):
+        assert got.dtype == getattr(torch, dtype)
+        _check(got[b], exp[b], scale[b], bf16=dtype == "bfloat16")
+
+
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_df2_tile_paths_counts_each_tile_once(level):
+    """The rule that picks df2's path, against a direct count over the
+    tiles: each tile's box of in-bounds taps at the level, tile path when
+    both sides are at most DF2_MAX_BOX, and tiles with no in-bounds tap
+    apart; ragged tiles at the grid's edge and far centres included."""
+    b, h, w = 2, 13, 77
+    rs = np.random.RandomState(20 + level)
+    gy, gx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    coords = (np.stack([gx, gy], -1)[None].repeat(b, 0)
+              + rs.randn(b, h, w, 2) * 12).astype(np.float32)
+    coords[0, :8, :8] += 400.0                  # one tile wholly outside
+    coords[1, 8:, 72:] = rs.rand(5, 5, 2) * 70  # far-flung windows
+    h2, w2 = h >> level, w >> level
+    expected = [0, 0, 0]
+    c = np.clip(coords / 2 ** level, -5.0, None)
+    cx = np.minimum(c[..., 0], w2 + 4.0)
+    cy = np.minimum(c[..., 1], h2 + 4.0)
+    x0 = np.floor(cx).astype(int) - 4
+    y0 = np.floor(cy).astype(int) - 4
+    t = twindowed.DF2_TILE
+    for bi in range(b):
+        for ty in range(0, h, t):
+            for tx in range(0, w, t):
+                xs, ys = x0[bi, ty:ty + t, tx:tx + t], y0[bi, ty:ty + t,
+                                                          tx:tx + t]
+                lo_x, hi_x = np.maximum(xs, 0), np.minimum(xs + 9, w2 - 1)
+                lo_y, hi_y = np.maximum(ys, 0), np.minimum(ys + 9, h2 - 1)
+                live = (lo_x <= hi_x) & (lo_y <= hi_y)
+                if not live.any():
+                    expected[2] += 1
+                    continue
+                fits = (hi_y[live].max() - lo_y[live].min() + 1
+                        <= twindowed.DF2_MAX_BOX
+                        and hi_x[live].max() - lo_x[live].min() + 1
+                        <= twindowed.DF2_MAX_BOX)
+                expected[0 if fits else 1] += 1
+    got = twindowed.df2_tile_paths(torch.from_numpy(coords), level, h2, w2)
+    assert list(got) == expected
+    # level 0's boxes are wider than DF2_MAX_BOX in places, the coarser
+    # levels' are not; one tile has no in-bounds tap at any level
+    assert got[1] > 0 if level == 0 else got[1] == 0
+    assert got[2] == 1
+    assert sum(got) == b * -(-h // t) * -(-w // t)
 
 
 @pytest.mark.parametrize("mask_costs,normalize", [
