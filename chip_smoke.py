@@ -75,9 +75,18 @@ the card and fails (non-zero exit, no result line) on any fault:
    all 4 levels at 368x496 f32 and at 2560x1072 bf16; two ragged cases;
    all 4 levels at 2560x1072 again with a smooth flow and a motion
    boundary), far windows exact zeros; each timed beside the plain
-   version and its bound; df2's tiles down each of its two paths, counted
-   by the kernel, equal to the rule ``df2_tile_paths`` computes from the
-   centres;
+   version and its bound; the tiles of each level down each path
+   (``fwd_paths``, ``df1_paths``, ``df2_paths``: tile, per-position or
+   direct, none in bounds), counted by the forward, df1 and df2 kernels,
+   equal to the rule ``tile_paths`` computes from the centres at the
+   kernels' side limit (``MAX_BOX``; 0 for the float32 forward and df1,
+   which have no tile path), with the tile-path shares
+   (``fwd_tile_share``, ``df1_tile_share``, ``df2_tile_share``); the
+   counting forward launch equals the first bit for bit; one non-finite
+   f2 pixel makes the bfloat16 df1's rows of the windows that hold it
+   non-finite and leaves the rows of every tile whose box does not hold it
+   bit for bit as they were (the tile path's product may carry it to the
+   other rows of its tiles: counted as ``leaked_rows``);
 15. fs model: ``raft/fs`` in float32, full width, 12 iterations, at
    1x368x496, card vs CPU from one seeded init at three budgets
    (``RMD_FS_VOLUME_GIB`` 0: every level windowed; 0.01: two; the
@@ -292,8 +301,9 @@ FS_ITERATIONS = 12
 FS_LEVELS = 4
 FS_CHANNELS = 256
 # peak rates by input dtype for the windowed correlation's bound: a bf16
-# dot could run on the tensor cores (989 TFLOP/s dense); a float32 one
-# could not without TF32, which changes the result (67 TFLOP/s)
+# dot runs on the tensor cores (989 TFLOP/s dense; the bf16 forward and df1
+# do); a float32 one could not without TF32, which changes the result (67
+# TFLOP/s)
 PEAK_BF16_OPS_S = 989e12
 # operations per position and level: 100 taps x C multiply-adds
 WCP_TAPS = (2 * FS_RADIUS + 2) ** 2
@@ -1498,13 +1508,18 @@ def _wcp_share(out, ref, scale, bf16=False):
 
 def _wcp_bound(nbytes, ops, dtype):
     """The least time for ``nbytes`` moved and ``ops`` done on inputs of
-    ``dtype``, in ms, what bounds it, and the float32 CUDA-core time."""
+    ``dtype``, in ms, and what bounds it."""
     bytes_ms = 1e3 * nbytes / PEAK_BYTES_S
     peak = PEAK_BF16_OPS_S if dtype == torch.bfloat16 else PEAK_F32_OPS_S
     ops_ms = 1e3 * ops / peak
     return (max(bytes_ms, ops_ms),
-            "bytes" if bytes_ms >= ops_ms else "operations",
-            1e3 * ops / PEAK_F32_OPS_S)
+            "bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def _tile_share(paths):
+    """Per level, the share of the tiles with an in-bounds tap that took
+    the tile path."""
+    return [p[0] / max(1, p[0] + p[1]) for p in paths]
 
 
 def phase_wcp_kernels(card):
@@ -1528,6 +1543,21 @@ def phase_wcp_kernels(card):
         torch.cuda.synchronize()
         if windowed.launches != before + 1:
             raise AssertionError("windowed_corr_pyramid did not launch")
+        # the forward's tiles per path, counted by the kernel, against the
+        # kernels' rule at the forward's and df1's side limit; the counting
+        # launch gives the same output bit for bit
+        limit = windowed.MAX_BOX if bf16 else 0
+        rule = [list(windowed.tile_paths(coords, i, *lvl.shape[1:3], limit,
+                                         radius=r))
+                for i, lvl in enumerate(levels)]
+        counts = torch.zeros(n_lvl, 3, dtype=torch.int32, device="cuda")
+        counted = windowed._launch(f1, levels, coords, r, path_counts=counts)
+        fwd_paths = counts.tolist()
+        if fwd_paths != rule or not torch.equal(counted, out):
+            raise AssertionError(f"windowed_corr_pyramid {case}: tiles per "
+                                 f"path {fwd_paths}, the rule says {rule}, "
+                                 "or the counting launch differs")
+        del counted
         ref = windowed.windowed_corr_pyramid_reference(f1, levels, coords, r)
         s_fwd = windowed.windowed_corr_pyramid_reference(
             f1.abs(), [x.abs() for x in levels], coords, r)
@@ -1542,21 +1572,26 @@ def phase_wcp_kernels(card):
 
         dout = torch.randn(out.shape, device="cuda", generator=gen)
         before = (windowed.df1_launches, windowed.df2_launches)
-        df1 = windowed._launch_df1(dout, f1, levels, coords, r)
+        counts = torch.zeros(n_lvl, 3, dtype=torch.int32, device="cuda")
+        df1 = windowed._launch_df1(dout, f1, levels, coords, r,
+                                   path_counts=counts)
+        df1_counts = counts
         counts = torch.zeros(n_lvl, 3, dtype=torch.int32, device="cuda")
         df2 = [windowed._launch_df2(dout, f1, lvl, coords, i, n_lvl, r,
                                     path_counts=counts[i])
                for i, lvl in enumerate(levels)]
         torch.cuda.synchronize()
-        # the tiles down each df2 path, counted by the kernel, against the
-        # kernel's rule computed from the centres
+        # the tiles down each df1 and df2 path, counted by the kernels,
+        # against their rule computed from the centres
+        df1_paths = df1_counts.tolist()
         paths = counts.tolist()
-        rule = [list(windowed.df2_tile_paths(coords, i, *lvl.shape[1:3],
-                                             radius=r))
-                for i, lvl in enumerate(levels)]
-        if paths != rule:
-            raise AssertionError(f"windowed_corr_pyramid df2 {case}: tiles "
-                                 f"per path {paths}, the rule says {rule}")
+        df2_rule = [list(windowed.tile_paths(coords, i, *lvl.shape[1:3],
+                                             windowed.MAX_BOX, radius=r))
+                    for i, lvl in enumerate(levels)]
+        if df1_paths != rule or paths != df2_rule:
+            raise AssertionError(f"windowed_corr_pyramid backward {case}: "
+                                 f"df1 tiles per path {df1_paths} (the rule "
+                                 f"says {rule}), df2 {paths} ({df2_rule})")
         if (windowed.df1_launches, windowed.df2_launches) \
                 != (before[0] + 1, before[1] + n_lvl):
             raise AssertionError("windowed_corr_pyramid backward did not "
@@ -1620,23 +1655,77 @@ def phase_wcp_kernels(card):
             levels=[list(x.shape) for x in levels], radius=r,
             positions=positions, max_abs_err=err, err_over_bound=share,
             ms=ms, plain_ms=plain_ms, bound_ms=fwd[0], bound_by=fwd[1],
-            f32_cores_ms=fwd[2],
+            fwd_paths=fwd_paths,
+            fwd_tile_share=_tile_share(fwd_paths),
             df1_max_abs_err=df1_err, df1_err_over_bound=df1_share,
             df1_ms=df1_ms, df1_bound_ms=bwd1[0], df1_bound_by=bwd1[1],
-            df1_f32_cores_ms=bwd1[2],
+            df1_paths=df1_paths,
+            df1_tile_share=_tile_share(df1_paths),
             df2_max_abs_err=df2_err, df2_err_over_bound=df2_share,
-            df2_ms=df2_ms, df2_paths=paths,
-            df2_tile_share=[p[0] / max(1, p[0] + p[1]) for p in paths],
+            df2_ms=df2_ms, df2_paths=paths, df2_tile_share=_tile_share(paths),
             df2_bound_ms=[x[0] for x in bwd2],
             df2_bound_by=[x[1] for x in bwd2],
-            df2_f32_cores_ms=[x[2] for x in bwd2],
             plain_bwd_ms=plain_bwd_ms)
         cases.append(record)
         emit(phase="kernel-check", kernel="windowed_corr_pyramid",
              tf32=False, card=card, **record)
         del f1, levels, coords, out, ref, dout, df1, df2, f1r, lvr
         torch.cuda.empty_cache()
+    emit(phase="kernel-check", kernel="windowed_corr_pyramid_df1",
+         check="one non-finite f2 pixel", card=card,
+         **_wcp_df1_nonfinite(gen))
     return cases
+
+
+def _wcp_df1_nonfinite(gen, n=32, pixel=(7, 7)):
+    """The bfloat16 df1 with one infinite f2 pixel, on an n x n grid of
+    integer centres (every tile on the tile path). The tile path's product
+    multiplies the pixel by the zero weights of the windows that do not
+    hold it too (0 * inf = NaN), so it may reach every df1 row of the
+    tiles whose box holds it, where the plain version confines it to the
+    windows that hold it. Held: the rows of those windows are non-finite,
+    and the rows of every other tile equal a launch on the finite inputs
+    bit for bit; returns the row counts."""
+    from raft_meets_dicl_tpu_torch.ops import windowed
+
+    r, c, t = FS_RADIUS, FS_CHANNELS, windowed.TILE
+    f1 = torch.randn(1, n, n, c, device="cuda", generator=gen).bfloat16()
+    f2 = torch.randn(1, n, n, c, device="cuda", generator=gen).bfloat16()
+    ys, xs = torch.meshgrid(torch.arange(n, device="cuda"),
+                            torch.arange(n, device="cuda"), indexing="ij")
+    coords = torch.stack((xs, ys), dim=-1)[None].float().contiguous()
+    dout = torch.randn(1, n, n, (2 * r + 1) ** 2, device="cuda",
+                       generator=gen)
+    finite = windowed._launch_df1(dout, f1, [f2], coords, r)
+    py, px = pixel
+    f2[0, py, px] = float("inf")
+    counts = torch.zeros(1, 3, dtype=torch.int32, device="cuda")
+    got = windowed._launch_df1(dout, f1, [f2], coords, r,
+                               path_counts=counts)
+    # windows x - r .. x + r + 1 (integer centres); a tile's box is its
+    # windows' union, clipped to the grid
+    lo_y, lo_x = (ys - r).clamp(min=0), (xs - r).clamp(min=0)
+    hi_y, hi_x = (ys + r + 1).clamp(max=n - 1), (xs + r + 1).clamp(max=n - 1)
+    in_window = (lo_y <= py) & (py <= hi_y) & (lo_x <= px) & (px <= hi_x)
+
+    def tiles(v, fn):
+        v = fn(fn(v.reshape(n // t, t, n // t, t), dim=3), dim=1)
+        return v.repeat_interleave(t, 0).repeat_interleave(t, 1)
+
+    in_box = (tiles(lo_y, torch.amin) <= py) \
+        & (py <= tiles(hi_y, torch.amax)) \
+        & (tiles(lo_x, torch.amin) <= px) & (px <= tiles(hi_x, torch.amax))
+    bad = ~torch.isfinite(got[0]).all(-1)
+    same = (got[0] == finite[0]).all(-1)
+    record = dict(tiles=counts.tolist(), window_rows=int(in_window.sum()),
+                  box_rows=int(in_box.sum()), nonfinite_rows=int(bad.sum()),
+                  leaked_rows=int((bad & ~in_window).sum()))
+    if counts.tolist() != [[(n // t) ** 2, 0, 0]] \
+            or not bool(bad[in_window].all()) \
+            or not bool(same[~in_box].all()) or bool(bad[~in_box].any()):
+        raise AssertionError(f"windowed_corr_pyramid df1 with one infinite "
+                             f"f2 pixel: {record}")
+    return record
 
 
 def _load_fs(mixed_precision=False):
@@ -2031,11 +2120,10 @@ def phase_lookup_kernels(card):
                 stage1_max_abs_err=err_t, stage1_err_over_bound=share_t,
                 stage1_ms=ms_t, stage1_plain_ms=plain_t_ms,
                 stage1_library_ms=lib_t_ms, stage1_bound_ms=bound_t[0],
-                stage1_bound_by=bound_t[1], stage1_f32_cores_ms=bound_t[2],
+                stage1_bound_by=bound_t[1],
                 fused_max_abs_err=err, fused_err_over_bound=share,
                 fused_ms=ms, fused_plain_ms=plain_ms, fused_library_ms=lib_ms,
                 fused_bound_ms=bound[0], fused_bound_by=bound[1],
-                fused_f32_cores_ms=bound[2],
                 library_err_over_bound=max(lib_t_share, lib_share))
             cases.append(record)
             emit(phase="kernel-check", kernel="lookup", tf32=False,
@@ -2400,7 +2488,7 @@ def _wcp_entries(results, launches):
         "max_err_over_bound": max(c["err_over_bound"] for c in cases),
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-        "f32_cores_ms": main["f32_cores_ms"], **common,
+        **common,
     }, {
         "name": "windowed_corr_pyramid_df1",
         "replaces": "raft_meets_dicl_tpu/ops/pallas.py:769",
@@ -2411,7 +2499,7 @@ def _wcp_entries(results, launches):
         "ms": main["df1_ms"], "plain_ms": main["plain_bwd_ms"],
         "plain_note": "the plain backward computes df1 and df2 together",
         "bound_ms": main["df1_bound_ms"], "bound_by": main["df1_bound_by"],
-        "f32_cores_ms": main["df1_f32_cores_ms"], **common,
+        **common,
     }, {
         "name": "windowed_corr_pyramid_df2",
         "replaces": "raft_meets_dicl_tpu/ops/pallas.py:793",
@@ -2423,7 +2511,7 @@ def _wcp_entries(results, launches):
         "plain_note": "the plain backward computes df1 and df2 together",
         "bound_ms": main["df2_bound_ms"][0],
         "bound_by": main["df2_bound_by"][0],
-        "f32_cores_ms": main["df2_f32_cores_ms"][0], **common,
+        **common,
     }]
 
 
@@ -2451,7 +2539,6 @@ def _lookup_entries(results, launches):
         "ms": main["stage1_ms"], "plain_ms": main["stage1_plain_ms"],
         "bound_ms": main["stage1_bound_ms"],
         "bound_by": main["stage1_bound_by"],
-        "f32_cores_ms": main["stage1_f32_cores_ms"],
         "library_ms": main["stage1_library_ms"],
         "library_note": "torch.matmul(wy, corr) in the inputs' dtype (arm "
                         "A's first matmul; bf16 output for bf16 inputs)",
@@ -2468,7 +2555,6 @@ def _lookup_entries(results, launches):
         "ms": main["fused_ms"], "plain_ms": main["fused_plain_ms"],
         "bound_ms": main["fused_bound_ms"],
         "bound_by": main["fused_bound_by"],
-        "f32_cores_ms": main["fused_f32_cores_ms"],
         "library_ms": main["fused_library_ms"],
         "library_note": "arm A: torch.matmul(wy, corr), then "
                         "torch.matmul(t.float(), wx.float().mT)",

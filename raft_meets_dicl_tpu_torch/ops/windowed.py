@@ -20,6 +20,11 @@ get no gradient, as every caller detaches the lookup centres. On CPU
 tensors it computes the plain version, ``windowed_corr_pyramid_reference``,
 whose autograd is the backward there. ``launches``, ``df1_launches`` and
 ``df2_launches`` count kernel launches (CPU calls do not count).
+
+The kernels take 8x8 tiles of positions; ``tile_paths`` says which tiles
+take each kernel's tile path (its side limit: ``MAX_BOX``, or 0 for the
+float32 forward and df1, which have none), and the launches count the
+same on the card when given ``path_counts``.
 """
 
 import ctypes
@@ -36,11 +41,16 @@ from .corr import windowed_correlation
 KERNEL_RADIUS = 4
 # the most pyramid levels one launch takes
 KERNEL_MAX_LEVELS = 6
-# the df2 kernel's tiles (positions a side) and the largest bounding box
-# side of a tile's taps that it adds on the chip (the tile path); a tile
-# with a wider box adds each tap to df2 directly (csrc/windowed_corr.cu)
-DF2_TILE = 8
-DF2_MAX_BOX = 48
+# the kernels' tiles (positions a side) and the largest bounding box side
+# of a tile's taps that they take down their tile paths
+# (csrc/windowed_corr.cu): df2 adds such a tile on the chip first, the
+# bfloat16 forward and df1 contract it on the tensor cores, one box row of
+# 48 bf16 pixels of 256 channels (about 25 KB) a stage of their
+# shared-memory ring. A wider box takes the per-position (direct) path for
+# that tile and level; the float32 forward and df1 have no tile path (side
+# limit 0)
+TILE = 8
+MAX_BOX = 48
 
 # kernel launches made by this process (forward, df1, df2); reset freely
 launches = 0
@@ -69,9 +79,9 @@ def _library():
     for fn in (lib.wcp_fwd_f32, lib.wcp_fwd_bf16, lib.wcp_df1_f32,
                lib.wcp_df1_bf16):
         # (f1 or dout, f2 pointers, (h2, w2) per level, n_levels, coords,
-        #  out, b, h, w, c, radius, stream)
+        #  out, b, h, w, c, radius, path_counts or None, stream)
         fn.argtypes = [ptr, ctypes.POINTER(ptr), ctypes.POINTER(i32), i32,
-                       ptr, ptr, i32, i32, i32, i32, i32, ptr]
+                       ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr]
         fn.restype = i32
     for fn in (lib.wcp_df2_f32, lib.wcp_df2_bf16):
         # (dout, f1, coords, df2, level, n_levels, h2, w2, b, h, w, c,
@@ -142,11 +152,30 @@ def _kernel(lib, name, dtype):
     return getattr(lib, f"{name}_{suffix}")
 
 
-def _launch(f1, f2_levels, coords, radius):
-    """Run the forward kernel over all levels: (B, H, W, L·K²) float32."""
+def _path_counts_arg(path_counts, levels, device):
+    """The kernels' path_counts pointer (None: not counted): ``levels``
+    rows of 3 contiguous int32 values on ``device``."""
+    if path_counts is None:
+        return None
+    if path_counts.dtype != torch.int32 \
+            or path_counts.numel() != 3 * levels \
+            or path_counts.device != device \
+            or not path_counts.is_contiguous():
+        raise ValueError(f"windowed_corr_pyramid: path_counts must be "
+                         f"{levels} x 3 contiguous int32 values on {device}")
+    return path_counts.data_ptr()
+
+
+def _launch(f1, f2_levels, coords, radius, path_counts=None):
+    """Run the forward kernel over all levels: (B, H, W, L·K²) float32.
+    With ``path_counts`` (an int32 CUDA tensor of L x 3 values) the kernel
+    adds each level's tiles per path: tile, per-position, no in-bounds tap
+    (the rule of ``tile_paths`` at ``MAX_BOX`` for bfloat16 inputs, 0 for
+    float32)."""
     global launches
 
     _check_inputs(f1, f2_levels, coords, radius)
+    counts = _path_counts_arg(path_counts, len(f2_levels), f1.device)
     f1, coords = cuda_build.aligned(f1), coords.contiguous()
     f2_levels = [cuda_build.aligned(f2) for f2 in f2_levels]
     b, h, w, c = f1.shape
@@ -156,17 +185,19 @@ def _launch(f1, f2_levels, coords, radius):
     ptrs, dims = _level_args(f2_levels)
     _run(_kernel(_library(), "wcp_fwd", f1.dtype), f1.device, f1.data_ptr(),
          ptrs, dims, len(f2_levels), coords.data_ptr(), out.data_ptr(), b, h,
-         w, c, radius)
+         w, c, radius, counts)
     launches += 1
     return out
 
 
-def _launch_df1(dout, f1, f2_levels, coords, radius):
+def _launch_df1(dout, f1, f2_levels, coords, radius, path_counts=None):
     """Run the df1 kernel: ``dout`` (B, H, W, L·K²) -> df1 (B, H, W, C)
-    float32, summed over the levels (one launch)."""
+    float32, summed over the levels (one launch). ``path_counts`` as for
+    ``_launch``."""
     global df1_launches
 
     _check_inputs(f1, f2_levels, coords, radius)
+    counts = _path_counts_arg(path_counts, len(f2_levels), f1.device)
     dout = cuda_build.aligned(dout.float())
     coords = coords.contiguous()
     f2_levels = [cuda_build.aligned(f2) for f2 in f2_levels]
@@ -180,7 +211,7 @@ def _launch_df1(dout, f1, f2_levels, coords, radius):
     ptrs, dims = _level_args(f2_levels)
     _run(_kernel(_library(), "wcp_df1", f1.dtype), f1.device,
          dout.data_ptr(), ptrs, dims, len(f2_levels), coords.data_ptr(),
-         df1.data_ptr(), b, h, w, c, radius)
+         df1.data_ptr(), b, h, w, c, radius, counts)
     df1_launches += 1
     return df1
 
@@ -191,10 +222,11 @@ def _launch_df2(dout, f1, f2, coords, level, n_levels, radius,
     ``dout`` (B, H, W, n_levels·K²) -> df2_level (B, H2, W2, C) float32.
     With ``path_counts`` (an int32 CUDA tensor of 3 values) the kernel
     adds the tiles it took down each path: tile, direct, no in-bounds tap
-    (the rule of ``df2_tile_paths``)."""
+    (the rule of ``tile_paths`` at ``MAX_BOX``)."""
     global df2_launches
 
     _check_inputs(f1, [f2], coords, radius)
+    counts = _path_counts_arg(path_counts, 1, f1.device)
     f2_shape = tuple(f2.shape)
     dout = cuda_build.aligned(dout.float())
     f1, coords = cuda_build.aligned(f1), coords.contiguous()
@@ -204,29 +236,24 @@ def _launch_df2(dout, f1, f2, coords, level, n_levels, radius,
             or not 0 <= level < n_levels:
         raise ValueError(f"windowed_corr_pyramid backward: dout "
                          f"{tuple(dout.shape)} at level {level} of {n_levels}")
-    if path_counts is not None and (
-            path_counts.dtype != torch.int32 or path_counts.numel() != 3
-            or path_counts.device != f1.device
-            or not path_counts.is_contiguous()):
-        raise ValueError("windowed_corr_pyramid backward: path_counts must "
-                         "be 3 contiguous int32 values on f1's device")
     df2 = torch.zeros(f2_shape, dtype=torch.float32, device=f1.device)
     _run(_kernel(_library(), "wcp_df2", f1.dtype), f1.device,
          dout.data_ptr(), f1.data_ptr(), coords.data_ptr(), df2.data_ptr(),
          level, n_levels, f2_shape[1], f2_shape[2], b, h, w, c, radius,
-         None if path_counts is None else path_counts.data_ptr())
+         counts)
     df2_launches += 1
     return df2
 
 
-def df2_tile_paths(coords, level, h2, w2, radius=KERNEL_RADIUS):
-    """The df2 kernel's choice of path for every tile of one level, computed
-    from the centres as the kernel does: (tiles on the tile path, tiles on
-    the direct path, tiles with no in-bounds tap).
+def tile_paths(coords, level, h2, w2, max_box, radius=KERNEL_RADIUS):
+    """A kernel's choice of path for every tile of one level, computed from
+    the centres as the kernels do: (tiles on the tile path, tiles on the
+    per-position or direct path, tiles with no in-bounds tap).
 
-    A tile is DF2_TILE x DF2_TILE positions of one image; its box is the
+    A tile is TILE x TILE positions of one image; its box is the
     bounding box of its windows' in-bounds taps at this level; it takes
-    the tile path when both box sides are at most DF2_MAX_BOX pixels."""
+    the tile path when both box sides are at most ``max_box`` pixels
+    (``MAX_BOX``; 0 for the float32 forward and df1)."""
     b, h, w, _ = coords.shape
     cxy = coords.float() * (1.0 / 2 ** level)
     cx = cxy[..., 0].clamp(-(radius + 1.0), float(w2 + radius))
@@ -238,7 +265,7 @@ def df2_tile_paths(coords, level, h2, w2, radius=KERNEL_RADIUS):
     y_lo, y_hi = y0.clamp(min=0), (y0 + taps).clamp(max=h2 - 1)
     live = (x_lo <= x_hi) & (y_lo <= y_hi)
     big = 1 << 40
-    t = DF2_TILE
+    t = TILE
     th, tw = -(-h // t), -(-w // t)
 
     def tile_reduce(v, fill, fn):
@@ -253,8 +280,7 @@ def df2_tile_paths(coords, level, h2, w2, radius=KERNEL_RADIUS):
     left = tile_reduce(x_lo, big, torch.amin)
     right = tile_reduce(x_hi, -big, torch.amax)
     empty = top == big
-    fits = (bottom - top + 1 <= DF2_MAX_BOX) & (right - left + 1
-                                                <= DF2_MAX_BOX)
+    fits = (bottom - top + 1 <= max_box) & (right - left + 1 <= max_box)
     return (int((fits & ~empty).sum()), int((~fits & ~empty).sum()),
             int(empty.sum()))
 

@@ -9,12 +9,14 @@ same numpy inputs.
   ``_wcp_bwd_interpret``, per-position and band forms); far out-of-bounds
   centres give exact zeros; coords get no gradient;
 - ``mask_costs`` and ``normalize`` against the JAX ``windowed_corr_pyramid``;
-- the plain df2 against the Pallas df2 in interpret mode in the two
-  coordinate regimes the CUDA df2 kernel tells apart (a smooth flow,
-  whose 8x8 tiles of positions take its tile path, and a motion
-  boundary, whose tiles astride it take its direct path), and the
-  kernel's rule for that choice (``df2_tile_paths``) against a direct
-  count;
+- the plain forward, df1 and df2 against the Pallas kernels in
+  interpret mode (per-position and band) in the two coordinate regimes
+  the CUDA kernels tell apart (a smooth flow, whose 8x8 tiles of
+  positions take their tile paths, and a motion boundary, whose tiles
+  astride it take the direct or per-position path), and the kernels'
+  rule for that choice (``tile_paths``) against a direct count at the
+  side limits ``MAX_BOX``, 24 and 0 (the float32 forward's and df1's);
+- the wrappers' check of ``path_counts``;
 - ``avg_pool2d`` bit for bit in float32 and bf16;
 - the kernel route refuses CPU tensors and counts nothing on the CPU.
 
@@ -197,7 +199,7 @@ def _df2_inputs(regime, dtype, c, seed=11):
     """f1, f2 (level 0) and coords for one b1 8x96 grid as numpy float32
     (bf16 inputs rounded once): the grid plus a smooth flow of a few px;
     with ``"boundary"`` the positions from x = 60 on move 44 px left, so
-    the tile astride x = 60 spans a box wider than DF2_MAX_BOX."""
+    the tile astride x = 60 spans a box wider than MAX_BOX."""
     h, w = 8, 96
     rs = np.random.RandomState(seed)
     f1 = rs.randn(1, h, w, c).astype(np.float32)
@@ -222,19 +224,26 @@ REGIMES = ("smooth", "boundary")
 @functools.lru_cache(maxsize=None)
 def _df2_pallas(dtype, c):
     """Both regimes as one batch of two images (the smooth one first) and
-    the Pallas df2 of its two levels in interpret mode (float32 before
-    the cast), computed once per dtype and C: f1, f2, coords, dout (numpy)
-    and the JAX df2 levels."""
+    the Pallas forward, df1 and df2 of its two levels in interpret mode
+    (float32 before the cast), per-position and band kernels, computed
+    once per dtype and C: f1, f2, coords, dout (numpy) and, per band
+    form, the JAX forward, df1 and df2 levels."""
     f1, f2, coords = (np.concatenate(x) for x in zip(
         *(_df2_inputs(regime, dtype, c) for regime in REGIMES)))
     dout = np.random.RandomState(12).randn(2, 8, 96, 2 * 81) \
         .astype(np.float32)
     jdt = getattr(jnp, dtype)
+    jf1, jc = jnp.asarray(f1, jdt), jnp.asarray(coords)
     jlevels = (jnp.asarray(f2, jdt), javg_pool2d(jnp.asarray(f2, jdt), 2))
-    _, jdf2 = jpallas._wcp_bwd_interpret(jnp.asarray(f1, jdt), jlevels,
-                                         jnp.asarray(coords),
-                                         jnp.asarray(dout), RADIUS)
-    return f1, f2, coords, dout, [np.asarray(x) for x in jdf2]
+    kernels = []
+    for band in (False, True):
+        fwd = jpallas._wcp_fwd_interpret(jf1, jlevels, jc, RADIUS, band=band)
+        df1, df2 = jpallas._wcp_bwd_interpret(jf1, jlevels, jc,
+                                              jnp.asarray(dout), RADIUS,
+                                              band=band)
+        kernels.append((np.asarray(fwd), np.asarray(df1),
+                        [np.asarray(x) for x in df2]))
+    return f1, f2, coords, dout, kernels
 
 
 @pytest.mark.parametrize("regime", REGIMES)
@@ -242,42 +251,47 @@ def _df2_pallas(dtype, c):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_df2_matches_pallas_interpret_in_both_tile_regimes(dtype, c,
                                                                  regime):
-    """df2 of two levels, the plain autograd against the Pallas df2 kernel
-    in interpret mode (float32 before the cast), at the coordinates whose
-    tiles the CUDA df2 kernel adds on the chip (smooth) or directly
-    (astride the boundary). Bound: 1e-5 max|expected| + 2^-13 S, S the
-    plain df2 of |f1|, |f2_l|, |dout|, plus one bf16 ulp where the plain
-    gradient is bf16 (it rounds once)."""
-    f1, f2, coords, dout, jdf2 = _df2_pallas(dtype, c)
+    """The forward, df1 and df2 of two levels, the plain version and its
+    autograd against the Pallas kernels in interpret mode (per-position
+    and band; float32 before the cast), at the coordinates whose tiles the
+    CUDA kernels take down their tile paths (smooth: every tile) or per
+    position / directly (astride the boundary). Bound: 1e-5 max|expected|
+    + 2^-13 S, S the plain function of |f1|, |f2_l| (gradients: and
+    |dout|), plus one bf16 ulp where the plain gradient is bf16 (it
+    rounds once)."""
+    f1, f2, coords, dout, kernels = _df2_pallas(dtype, c)
     b = REGIMES.index(regime)
     tc = torch.from_numpy(coords)
     tf2 = torch.from_numpy(f2).to(getattr(torch, dtype))
     tlevels = [tf2, tpool.avg_pool2d(tf2, 2)]
-    paths = [twindowed.df2_tile_paths(tc[b:b + 1], lvl, *x.shape[1:3])
+    paths = [twindowed.tile_paths(tc[b:b + 1], lvl, *x.shape[1:3],
+                                  twindowed.MAX_BOX)
              for lvl, x in enumerate(tlevels)]
     if regime == "smooth":
         assert all(p[1] == 0 and p[0] > 0 for p in paths), paths
     else:
         assert paths[0][1] >= 1 and paths[0][0] >= 1, paths
 
-    tf1 = torch.from_numpy(f1).to(getattr(torch, dtype))
+    bf16 = dtype == "bfloat16"
+    tf1 = torch.from_numpy(f1).to(getattr(torch, dtype)).requires_grad_(True)
     tlevels = [x.detach().requires_grad_(True) for x in tlevels]
     out = twindowed.windowed_corr_pyramid_reference(tf1, tlevels, tc, RADIUS)
-    grads = torch.autograd.grad(out, tlevels, torch.from_numpy(dout))
+    grads = torch.autograd.grad(out, [tf1, *tlevels], torch.from_numpy(dout))
     levels_f32 = [x.detach().float().numpy() for x in tlevels]
+    fwd_scale = _plain_with_scale(f1, levels_f32, tc)
     scales = _plain_with_scale(f1, levels_f32, tc, torch.from_numpy(dout))
-    assert len(jdf2) == 2
-    for got, exp, scale in zip(grads, jdf2, scales[1:]):
-        assert got.dtype == getattr(torch, dtype)
-        _check(got[b], exp[b], scale[b], bf16=dtype == "bfloat16")
+    assert all(got.dtype == getattr(torch, dtype) for got in grads)
+    for jfwd, jdf1, jdf2 in kernels:
+        _check(out[b], jfwd[b], fwd_scale[b])
+        _check(grads[0][b], jdf1[b], scales[0][b], bf16=bf16)
+        assert len(jdf2) == 2
+        for got, exp, scale in zip(grads[1:], jdf2, scales[1:]):
+            _check(got[b], exp[b], scale[b], bf16=bf16)
 
 
-@pytest.mark.parametrize("level", [0, 1, 2])
-def test_df2_tile_paths_counts_each_tile_once(level):
-    """The rule that picks df2's path, against a direct count over the
-    tiles: each tile's box of in-bounds taps at the level, tile path when
-    both sides are at most DF2_MAX_BOX, and tiles with no in-bounds tap
-    apart; ragged tiles at the grid's edge and far centres included."""
+def _rule_coords(level):
+    """b2 13x77 centres for the path rule: the grid plus a spread of 12
+    px, one tile wholly outside, one corner of far-flung windows."""
     b, h, w = 2, 13, 77
     rs = np.random.RandomState(20 + level)
     gy, gx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
@@ -285,14 +299,21 @@ def test_df2_tile_paths_counts_each_tile_once(level):
               + rs.randn(b, h, w, 2) * 12).astype(np.float32)
     coords[0, :8, :8] += 400.0                  # one tile wholly outside
     coords[1, 8:, 72:] = rs.rand(5, 5, 2) * 70  # far-flung windows
-    h2, w2 = h >> level, w >> level
+    return coords
+
+
+def _direct_tile_paths(coords, level, h2, w2, max_box):
+    """The tiles per path counted tile by tile: each tile's box of
+    in-bounds taps at the level, tile path when both sides are at most
+    ``max_box``, and tiles with no in-bounds tap apart."""
+    b, h, w, _ = coords.shape
     expected = [0, 0, 0]
     c = np.clip(coords / 2 ** level, -5.0, None)
     cx = np.minimum(c[..., 0], w2 + 4.0)
     cy = np.minimum(c[..., 1], h2 + 4.0)
     x0 = np.floor(cx).astype(int) - 4
     y0 = np.floor(cy).astype(int) - 4
-    t = twindowed.DF2_TILE
+    t = twindowed.TILE
     for bi in range(b):
         for ty in range(0, h, t):
             for tx in range(0, w, t):
@@ -304,18 +325,65 @@ def test_df2_tile_paths_counts_each_tile_once(level):
                 if not live.any():
                     expected[2] += 1
                     continue
-                fits = (hi_y[live].max() - lo_y[live].min() + 1
-                        <= twindowed.DF2_MAX_BOX
+                fits = (hi_y[live].max() - lo_y[live].min() + 1 <= max_box
                         and hi_x[live].max() - lo_x[live].min() + 1
-                        <= twindowed.DF2_MAX_BOX)
+                        <= max_box)
                 expected[0 if fits else 1] += 1
-    got = twindowed.df2_tile_paths(torch.from_numpy(coords), level, h2, w2)
-    assert list(got) == expected
-    # level 0's boxes are wider than DF2_MAX_BOX in places, the coarser
+    return expected
+
+
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_df2_tile_paths_counts_each_tile_once(level):
+    """The rule that picks df2's path (``tile_paths`` at MAX_BOX),
+    against a direct count over the tiles; ragged tiles at the grid's edge
+    and far centres included."""
+    coords = _rule_coords(level)
+    b, h, w, _ = coords.shape
+    h2, w2 = h >> level, w >> level
+    t = twindowed.TILE
+    got = twindowed.tile_paths(torch.from_numpy(coords), level, h2, w2,
+                               twindowed.MAX_BOX)
+    assert list(got) == _direct_tile_paths(coords, level, h2, w2,
+                                           twindowed.MAX_BOX)
+    # level 0's boxes are wider than MAX_BOX in places, the coarser
     # levels' are not; one tile has no in-bounds tap at any level
     assert got[1] > 0 if level == 0 else got[1] == 0
     assert got[2] == 1
     assert sum(got) == b * -(-h // t) * -(-w // t)
+
+
+@pytest.mark.parametrize("max_box", [0, 24])
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_tile_paths_counts_each_tile_once_at_each_side_limit(level, max_box):
+    """``tile_paths`` below MAX_BOX (the test above) against the same
+    direct count: at 0 (the float32 forward and df1) no tile takes the
+    tile path, at 24 some fewer do; the empty tiles never depend on the
+    limit."""
+    coords = _rule_coords(level)
+    b, h, w, _ = coords.shape
+    h2, w2 = h >> level, w >> level
+    got = twindowed.tile_paths(torch.from_numpy(coords), level, h2, w2,
+                               max_box)
+    assert list(got) == _direct_tile_paths(coords, level, h2, w2, max_box)
+    assert got[2] == 1
+    if max_box == 0:
+        assert got[0] == 0
+
+
+def test_path_counts_argument_is_checked():
+    """The wrappers' ``path_counts``: None counts nothing; otherwise rows
+    of 3 contiguous int32 values, one row a level, on the inputs'
+    device."""
+    cpu = torch.device("cpu")
+    assert twindowed._path_counts_arg(None, 4, cpu) is None
+    good = torch.zeros(4, 3, dtype=torch.int32)
+    assert twindowed._path_counts_arg(good, 4, cpu) == good.data_ptr()
+    for bad in (torch.zeros(4, 3, dtype=torch.int64),
+                torch.zeros(3, 3, dtype=torch.int32),
+                torch.zeros(3, 4, dtype=torch.int32).t(),
+                torch.zeros(4, 3, dtype=torch.int32, device="meta")):
+        with pytest.raises(ValueError, match="path_counts"):
+            twindowed._path_counts_arg(bad, 4, cpu)
 
 
 @pytest.mark.parametrize("mask_costs,normalize", [
