@@ -111,9 +111,14 @@ the card and fails (non-zero exit, no result line) on any fault:
    (``csrc/fused_lookup.cu``) against their plain versions on the card,
    TF32 and cuBLAS's reduced-precision bf16 reductions off, at the
    lookup probe's bench case (level 0 of batch 6 at 400x720, its hat
-   inputs) in bf16 and f32, dense random weights, a ragged and a wide
-   case, each timed beside the plain version, its bound and the
-   ``torch.matmul`` pair (checked against the plain version too); then the
+   inputs) in bf16 and f32, dense random weights, ragged, wide and
+   widest-row cases (each of the fused kernel's modes and tile splits,
+   its plan from the built library equal to ``lookup.fused_plan``), each
+   timed beside the plain version, its bound and the ``torch.matmul`` pair
+   (checked against the plain version too); at the dense cases corr set
+   to +inf at one element of one position makes that position's fused
+   outputs non-finite wherever the plain version's are and leaves every
+   other position's bit for bit as on finite inputs; then the
    probe itself (``python -m raft_meets_dicl_tpu_torch.scripts.
    probe_fused_lookup``, bf16 and f32, its own process): all four arms
    within their bounds, each kernel launched once per timed call and once
@@ -376,8 +381,11 @@ FS_TRAIN_STEPS = 8
 # -- the lookup probe's kernels (csrc/fused_lookup.cu). Cases (b, ni, nj,
 # h2, w2): the probe's bench case (level 0 of batch 6 at 400x720) in bf16
 # and f32 with its own hat inputs; dense random wy, wx (every product
-# counts); a ragged case; a wide one (W2 700: the fused tile takes more
-# than 48 KB of shared memory, the opt-in path)
+# counts); ragged ones (W2 37: a last 3-tile group of two tiles; W2 41:
+# two groups, each with a lone third tile); wide ones (20x700: a position
+# larger than a stage, the fused kernel's rows mode, in both dtypes) and
+# the widest row the fused kernel takes (W2 3211), whose wx exceeds a
+# stage's. lookup.fused_plan names each case's mode
 LOOKUP_CASES = (
     {"name": "probe bench level 0", "kind": "hat", "dtype": "bfloat16",
      "shape": (6, 50, 90, 50, 90)},
@@ -391,8 +399,16 @@ LOOKUP_CASES = (
      "shape": (2, 7, 13, 11, 37)},
     {"name": "ragged", "kind": "hat", "dtype": "bfloat16",
      "shape": (2, 7, 13, 11, 37)},
+    {"name": "ragged", "kind": "dense", "dtype": "bfloat16",
+     "shape": (1, 3, 7, 13, 41)},
     {"name": "wide", "kind": "dense", "dtype": "float32",
      "shape": (1, 2, 3, 20, 700)},
+    {"name": "wide", "kind": "dense", "dtype": "bfloat16",
+     "shape": (1, 2, 3, 20, 700)},
+    {"name": "widest row", "kind": "dense", "dtype": "bfloat16",
+     "shape": (1, 1, 2, 3, 3211)},
+    {"name": "widest row", "kind": "dense", "dtype": "float32",
+     "shape": (1, 1, 2, 3, 3211)},
 )
 LOOKUP_MAIN_CASE = 0      # the kernels line quotes the bf16 bench case
 # tolerance: |kernel - plain| <= 2^-13 S elementwise, S the same function
@@ -400,6 +416,12 @@ LOOKUP_MAIN_CASE = 0      # the kernels line quotes the bf16 bench case
 # orders; the fused result of bf16 inputs adds one bf16 ulp of t carried
 # through |wx| (t rounds after sums in another order)
 LOOKUP_ORDER_REL = 2.0 ** -13
+# the non-finite pin of the dense cases: corr = +inf at row 0, column 2 of
+# position 2·(N // 4) + 1, the second of a bf16 stage's two positions: the
+# first one's last, partial 16-row k tile reads that row as one past H2
+# (masked), and its last row's column tiles read the element as a column
+# past W2 (reaching only t's columns past W2, which stage 2 zeroes)
+LOOKUP_PIN = (0, 2)
 # timed calls of each arm in the probe runs (launches: one warm-up more)
 PROBE_STEPS = 20
 
@@ -2015,6 +2037,33 @@ def _lookup_share(out, ref, bound):
     return err.max().item(), (err / bound.clamp(min=1e-30)).max().item()
 
 
+def _lookup_pin(lookup, wy, corr, wx, out):
+    """The fused kernel with corr = +inf at LOOKUP_PIN of one position
+    (see there): that position's outputs non-finite wherever the plain
+    version's are (every one: 0 · inf is NaN), every other position's bit
+    for bit as ``out`` (the same inputs, finite)."""
+    h2, w2 = corr.shape[-2:]
+    flat = corr.reshape(-1, h2, w2).clone()
+    p = 2 * (flat.shape[0] // 4) + 1
+    flat[(p, *LOOKUP_PIN)] = float("inf")
+    pinned = flat.reshape(corr.shape)
+    got = lookup.lookup_fused(wy, pinned, wx).reshape(-1, 9, 9)
+    plain = lookup.lookup_fused_reference(wy, pinned, wx).reshape(-1, 9, 9)
+    torch.cuda.synchronize()
+    nonfinite = ~torch.isfinite(got[p])
+    others = torch.ones(got.shape[0], dtype=torch.bool, device=got.device)
+    others[p] = False
+    record = dict(position=p, element=list(LOOKUP_PIN),
+                  nonfinite=int(nonfinite.sum()),
+                  plain_nonfinite=int((~torch.isfinite(plain[p])).sum()),
+                  others_unchanged=bool(torch.equal(
+                      got[others], out.reshape(-1, 9, 9)[others])))
+    if not (torch.equal(nonfinite, ~torch.isfinite(plain[p]))
+            and record["others_unchanged"]):
+        raise AssertionError(f"lookup_fused non-finite pin: {record}")
+    return record
+
+
 def _lookup_probe_run(dtype):
     """The port's probe entry point as a user runs it (its own process,
     so its launch counts start at 0): returns its result line."""
@@ -2062,6 +2111,15 @@ def phase_lookup_kernels(card):
             dtype = getattr(torch, case["dtype"])
             bf16 = dtype == torch.bfloat16
             wy, corr, wx = _lookup_inputs(case, gen)
+            b, ni, nj, h2, w2 = case["shape"]
+            # the fused kernel's plan as the built library computes it,
+            # equal to the rule the CPU tests pin
+            plan = lookup.fused_plan(h2, w2, dtype)
+            if lookup.kernel_fused_plan(h2, w2, dtype) != plan:
+                raise AssertionError(
+                    f"lookup {case}: the kernel's fused plan "
+                    f"{lookup.kernel_fused_plan(h2, w2, dtype)} is not "
+                    f"lookup.fused_plan's {plan}")
             before = (lookup.stage1_launches, lookup.fused_launches)
             t = lookup.lookup_stage1(wy, corr)
             out = lookup.lookup_fused(wy, corr, wx)
@@ -2093,6 +2151,8 @@ def phase_lookup_kernels(card):
                     f"lookup {case}: stage 1 {err_t} ({share_t} of its "
                     f"bound), fused {err} ({share}), library {lib_t_share} "
                     f"/ {lib_share}")
+            pin = (_lookup_pin(lookup, wy, corr, wx, out)
+                   if case["kind"] == "dense" else None)
 
             ms_t = gpu_timer_ms(lambda: lookup.lookup_stage1(wy, corr))
             ms = gpu_timer_ms(lambda: lookup.lookup_fused(wy, corr, wx))
@@ -2105,7 +2165,6 @@ def phase_lookup_kernels(card):
                 torch.matmul(wy, corr).float(),
                 wx.float().transpose(-1, -2)))
 
-            b, ni, nj, h2, w2 = case["shape"]
             n, k = b * ni * nj, 9
             size = wy.element_size()
             ops_t = 2 * n * k * h2 * w2
@@ -2124,7 +2183,8 @@ def phase_lookup_kernels(card):
                 fused_max_abs_err=err, fused_err_over_bound=share,
                 fused_ms=ms, fused_plain_ms=plain_ms, fused_library_ms=lib_ms,
                 fused_bound_ms=bound[0], fused_bound_by=bound[1],
-                library_err_over_bound=max(lib_t_share, lib_share))
+                library_err_over_bound=max(lib_t_share, lib_share),
+                fused_plan=plan, **({"nonfinite_pin": pin} if pin else {}))
             cases.append(record)
             emit(phase="kernel-check", kernel="lookup", tf32=False,
                  card=card, **record)

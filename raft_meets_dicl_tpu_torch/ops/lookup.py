@@ -22,6 +22,9 @@ they launch the kernels or raise. There is no autograd (the Pallas
 kernels have no VJP). The kernels are built for K = 9 (radius 4, every
 shipped config's); another K is refused on the card. ``stage1_launches``
 and ``fused_launches`` count kernel launches (CPU calls do not count).
+``fused_plan`` is the fused kernel's rule for cutting positions into
+stages and columns into warps (``kernel_fused_plan`` asks the built
+library for the same).
 """
 
 import ctypes
@@ -32,9 +35,21 @@ from . import cuda_build
 
 # window rows the kernels are built for: 2 * radius + 1 at radius 4
 KERNEL_K = 9
-# the fused kernel keeps a block's (K, W2) tiles of t and wx in shared
-# memory: at most 227 KB on Hopper, so W2 (padded to odd) <= 3,212
+# the widest row the fused kernel takes: a position larger than a stage
+# keeps its (K, W2) float32 t in shared memory beside the stage ring (at
+# most 190 KB of a block's 227 KB up to this width; ``fused_plan``)
 FUSED_MAX_W2 = 3211
+
+# the fused kernel's plan constants (csrc/fused_lookup.cu)
+_STAGES = 3             # kStages: ring buffers
+_STAGE_CAP = 24 * 1024  # kStageCap: corr bytes a stage
+_MAX_UNITS = 8          # kMaxUnits: whole positions a stage
+_WY_CAP = 16 * 1024     # kWyCap: bytes of a stage's staged wy
+_WX_CAP = 16 * 1024     # kWxCap: bytes of a stage's wx
+_WY_PAD = 12            # kWyPad: floats a staged float32 wy row
+_TILES_PER_WARP = 3     # kTilesPerWarp: 8-column tiles a bf16 warp item
+_WARPS = 8              # kThreads / 32
+MAX_SHARED_BYTES = 232448  # a block's shared memory on Hopper
 
 # kernel launches made by this process; reset freely
 stage1_launches = 0
@@ -56,6 +71,69 @@ def lookup_fused_reference(wy, corr, wx):
     return torch.matmul(t.float(), wx.float().transpose(-1, -2))
 
 
+def _align16(x):
+    return (x + 15) & ~15
+
+
+def fused_plan(h2, w2, dtype):
+    """How the fused kernel cuts positions of H2 x W2 (``make_plan`` in
+    ``csrc/fused_lookup.cu`` with ``fused``; ``chip_smoke.py`` holds the
+    two equal on the card). Returns a dict:
+
+    - ``mode``: ``"whole"`` (``units`` whole positions a stage, their wy
+      and wx copied after corr; bf16 runs both contractions on
+      ``mma.sync``, float32 on FMAs and a shuffle reduce-scatter) or
+      ``"rows"`` (a position in ``upp`` units of ``hc`` rows, its t summed
+      in a shared (K, W2) tile before stage 2);
+    - ``ipu``, ``gpi``: warps a position and granules a warp (bf16 whole
+      mode: groups of three 8-column tiles; else 32-column chunks);
+    - ``smem``: the block's shared-memory bytes (at most
+      ``MAX_SHARED_BYTES`` for every shape the wrapper accepts)."""
+    bf16 = dtype == torch.bfloat16
+    es = 2 if bf16 else 4
+    k = KERNEL_K
+
+    def staged_wy(rows):
+        return (k * (_align16(rows) + 8) * 2 if bf16
+                else rows * _WY_PAD * 4)
+
+    wx_unit = k * w2 * es
+    pos_bytes = h2 * w2 * es
+    if pos_bytes <= _STAGE_CAP and staged_wy(h2) <= _WY_CAP \
+            and wx_unit <= _WX_CAP:
+        mode, upp, hc = "whole", 1, h2
+        units = min(_STAGE_CAP // pos_bytes, _WY_CAP // staged_wy(h2),
+                    _WX_CAP // wx_unit, _MAX_UNITS)
+        stage_elems = units * h2 * w2
+    elif w2 * es <= _STAGE_CAP:
+        hc = _STAGE_CAP // (w2 * es)
+        while hc > 1 and staged_wy(hc) > _WY_CAP:
+            hc //= 2
+        mode, units, hc = "rows", 1, min(hc, h2)
+        upp = -(-h2 // hc)
+        stage_elems = hc * w2
+    else:
+        raise ValueError(f"lookup_fused: a row of {w2} values exceeds a "
+                         "stage")
+    whole = mode == "whole"
+    stage_bytes = ((stage_elems * es + 47) & ~15) + (
+        ((units * k * h2 * es + 47) & ~15)
+        + ((units * wx_unit + 47) & ~15) if whole else 0)
+    granules = (-(-(-(-w2 // 8)) // _TILES_PER_WARP) if bf16 and whole
+                else -(-w2 // 32))
+    warps = _WARPS // units if whole else _WARPS
+    gpi = -(-granules // min(warps, granules))
+    ipu = -(-granules // gpi)
+    hp = _align16(hc) + 8
+    swy = (0 if whole else k * hp * 2) if bf16 else units * hc * _WY_PAD * 4
+    slots = 2 * units * ipu * k * k * 4
+    # the ring, staged wy, slots, rows mode's t tile, the ring's barriers
+    smem = _align16(_STAGES * stage_bytes + _align16(swy) + _align16(slots)
+                    + (0 if whole else k * w2 * 4)) + _STAGES * 8
+    return {"mode": mode, "units": units, "upp": upp, "hc": hc,
+            "ipu": ipu, "gpi": gpi, "smem": smem}
+
+
 def _library():
     lib = cuda_build.load("fused_lookup")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -67,7 +145,23 @@ def _library():
         # (wy, corr, wx, out, n, k, h2, w2, stream)
         fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, ptr]
         fn.restype = i32
+    # (h2, w2, bf16, fields out): the fused plan, host code only
+    lib.lookup_fused_plan.argtypes = [i32, i32, i32, ptr]
+    lib.lookup_fused_plan.restype = i32
     return lib
+
+
+def kernel_fused_plan(h2, w2, dtype):
+    """The fused plan as the built kernel library computes it (host code;
+    needs the library, so nvcc): the keys of ``fused_plan``."""
+    fields = (ctypes.c_int * 7)()
+    err = _library().lookup_fused_plan(h2, w2, int(dtype == torch.bfloat16),
+                                       ctypes.cast(fields, ctypes.c_void_p))
+    if err != 0:
+        raise ValueError(f"lookup_fused: no plan for ({h2}, {w2})")
+    whole, units, upp, hc, ipu, gpi, smem = fields
+    return {"mode": "whole" if whole else "rows", "units": units,
+            "upp": upp, "hc": hc, "ipu": ipu, "gpi": gpi, "smem": smem}
 
 
 def _check_inputs(wy, corr, wx=None):
@@ -142,7 +236,9 @@ def _launch_fused(wy, corr, wx):
     global fused_launches
 
     n, h2, w2 = _check_inputs(wy, corr, wx)
-    wy, corr, wx = wy.contiguous(), corr.contiguous(), wx.contiguous()
+    # the kernel streams wy, corr and wx with bulk copies from 16-byte
+    # boundaries
+    wy, corr, wx = (cuda_build.aligned(t) for t in (wy, corr, wx))
     out = torch.empty((*wy.shape[:-1], KERNEL_K), dtype=torch.float32,
                       device=wy.device)
     lib = _library()

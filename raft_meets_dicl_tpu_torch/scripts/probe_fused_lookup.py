@@ -6,8 +6,9 @@ source position, timed four ways:
      (``ops/corr.py::_lookup_level``), the library call
   B. the stage-1 kernel (``ops.lookup.lookup_stage1``, t = wy @ corr)
   C. the fused kernel (``ops.lookup.lookup_fused``: t rounded to the
-     inputs' dtype in shared memory, then t @ wxᵀ; t never reaches device
-     memory)
+     inputs' dtype in registers, then t @ wxᵀ, in bf16 a second
+     tensor-core product fed from the first's accumulators; t never
+     reaches device memory)
   D. arm A over the u8-quantized volume (``ops.quant.quantize_level``,
      outside the timer): the volume is dequantized to the working dtype
      (a materialized copy in PyTorch), contracted, and the per-sample

@@ -9,6 +9,12 @@ card) and the port's lookup probe, held against the JAX repository's
   and bf16, hat and dense inputs, the probe's level-0 row shape and small
   ragged shapes;
 - the hat contraction is the model's own lookup (``ops.corr._lookup_level``);
+- the fused kernel's plan (``ops.lookup.fused_plan``: whole or rows mode,
+  the warps' column split, shared memory) at the shapes that take each
+  branch, within a block's shared memory for every accepted shape, and
+  the shapes of ``CASES`` covering every branch (``chip_smoke.py`` holds
+  the built kernel's plan equal to it and each branch against the plain
+  version on the card);
 - the wrappers take the plain version for CPU tensors and count nothing;
   the card-side checks refuse K != 9, mixed dtypes, mismatched shapes,
   too wide a fused tile and CPU tensors;
@@ -94,6 +100,15 @@ CASES = [
     ("dense", (1, 3, 7), 13, 21),
     ("hat", (1, 1, 15), 17, 29),
     ("dense", (2, 3, 4), 9, 23),
+    # the fused kernel's branches (fused_plan): H2 and W2 not multiples of
+    # 16, and W2 41 (six 8-column tiles: two 3-tile groups, each with a
+    # lone third C fragment for the bf16 k16 repack); a position larger
+    # than a stage (rows mode, t summed in shared memory); the widest row
+    # it takes (its wx exceeds a stage's: rows mode at 3 rows)
+    ("hat", (1, 2, 5), 37, 45),
+    ("dense", (1, 3, 7), 13, 41),
+    ("dense", (1, 2, 3), 20, 700),
+    ("dense", (1, 1, 2), 3, tlookup.FUSED_MAX_W2),
 ]
 
 
@@ -170,6 +185,80 @@ def test_hat_contraction_is_the_model_lookup(dtype):
         ulp = torch.matmul(torch.from_numpy(_bf16_ulp(t.numpy())).float(),
                            wx.float().abs().transpose(-1, -2))
         assert bool(((actual - expected).abs() <= ulp + 1e-5).all())
+
+
+@pytest.mark.parametrize("h2,w2,dtype,expected", [
+    # the probe's bench rows: two bf16 positions a stage, a warp per 3-tile
+    # group (12 tiles: 4 warps a position); one float32 position, a warp a
+    # 32-column chunk
+    (50, 90, torch.bfloat16, {"mode": "whole", "units": 2, "ipu": 4,
+                              "gpi": 1}),
+    (50, 90, torch.float32, {"mode": "whole", "units": 1, "ipu": 3,
+                             "gpi": 1}),
+    # small positions: eight a stage, a warp each, two granules a warp
+    (13, 41, torch.bfloat16, {"mode": "whole", "units": 8, "ipu": 1,
+                              "gpi": 2}),
+    (11, 37, torch.float32, {"mode": "whole", "units": 8, "ipu": 1,
+                             "gpi": 2}),
+    # larger than a stage: rows mode in units of hc rows
+    (20, 700, torch.float32, {"mode": "rows", "upp": 3, "hc": 8,
+                              "ipu": 8, "gpi": 3}),
+    (20, 700, torch.bfloat16, {"mode": "rows", "upp": 2, "hc": 17}),
+    # wx past a stage's share: rows mode with one unit
+    (3, 3211, torch.bfloat16, {"mode": "rows", "upp": 1, "hc": 3,
+                               "ipu": 8, "gpi": 13}),
+    # wy past a stage's staged tile: rows mode
+    (2000, 2, torch.bfloat16, {"mode": "rows", "upp": 3, "hc": 768,
+                               "ipu": 1}),
+    (1, 1, torch.float32, {"mode": "whole", "units": 8, "ipu": 1}),
+])
+def test_fused_plan_at_each_branch(h2, w2, dtype, expected):
+    plan = tlookup.fused_plan(h2, w2, dtype)
+    assert {key: plan[key] for key in expected} == expected
+    assert plan["smem"] <= tlookup.MAX_SHARED_BYTES
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_plan_fits_every_accepted_shape(dtype):
+    """No shape the wrapper accepts is refused by the kernel's shared
+    memory: the widest row (the rows-mode t tile beside the ring) at every
+    H2, and whole mode's largest stages. Every warp split covers a
+    position's columns with runs of gpi granules, none empty."""
+    seen = set()
+    for h2 in (1, 2, 3, 4, 7, 16, 17, 31, 33, 50, 64, 100, 257, 1000, 4000):
+        for w2 in (1, 2, 7, 8, 9, 23, 33, 41, 64, 90, 455, 456, 910, 911,
+                   2000, tlookup.FUSED_MAX_W2):
+            plan = tlookup.fused_plan(h2, w2, dtype)
+            seen.add(plan["mode"])
+            assert plan["smem"] <= tlookup.MAX_SHARED_BYTES, (h2, w2, plan)
+            mma = plan["mode"] == "whole" and dtype == torch.bfloat16
+            granules = -(-(-(-w2 // 8)) // 3) if mma else -(-w2 // 32)
+            assert (plan["ipu"] - 1) * plan["gpi"] < granules \
+                <= plan["ipu"] * plan["gpi"]
+            assert plan["units"] * plan["ipu"] <= 8
+            assert plan["upp"] * plan["hc"] >= h2
+    assert seen == {"whole", "rows"}
+    with pytest.raises(ValueError, match="exceeds a stage"):
+        tlookup.fused_plan(1, 20000, dtype)
+
+
+def test_cases_take_every_fused_branch():
+    """``CASES`` (held against the JAX probe above) take each branch of
+    the fused kernel in both dtypes: whole and rows mode; bf16 tile groups
+    of one, two and three 8-column tiles (a lone C fragment in the k16
+    repack where a group's tile count is odd); H2 not a multiple of 16."""
+    modes = set()
+    group_tiles = set()
+    for _, _, h2, w2 in CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            plan = tlookup.fused_plan(h2, w2, dtype)
+            modes.add((plan["mode"], str(dtype)))
+            if plan["mode"] == "whole" and dtype == torch.bfloat16:
+                group_tiles.add(-(-w2 // 8) % 3 or 3)
+    assert modes == {(m, str(d)) for m in ("whole", "rows")
+                     for d in (torch.float32, torch.bfloat16)}
+    assert group_tiles == {1, 2, 3}
+    assert any(h2 % 16 and w2 % 16 for _, _, h2, w2 in CASES)
 
 
 def test_wrappers_take_the_plain_version_on_cpu():
