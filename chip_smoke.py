@@ -134,7 +134,31 @@ the card and fails (non-zero exit, no result line) on any fault:
    first iteration's and the final flow within their bounds below, the
    same forward with TF32 outside the first's, and the tier's own effect
    (quantized vs the card's unquantized flow) larger than each; the card's
-   run from its own features is read beside it.
+   run from its own features is read beside it;
+21. lifecycle: ``raft/baseline`` (shipped bf16-policy config, frozen BN)
+   through ``main train`` with ``cfg/inspect/default.yaml``: a two-stage
+   ``mode: best`` strategy shaped like ``s1-things.yaml`` (no augment or
+   concat), batch 6 at 400x720, 2 epochs of 2 steps a stage, each epoch
+   validated on a 436x1024 tree (Sintel's size, batch 2, sample 0's
+   images): every epoch's metric-named checkpoint kept, stage 2 started
+   from stage 1's best by ``compare`` (the live weights bit for bit), a
+   loaded checkpoint re-saved bit for bit, the validation scalars and four
+   images a pass in the event file; the same run with ``compare`` on the
+   step count, so stage 1's best is its first checkpoint and not its
+   latest, stopped after stage 2's first step: stage 2 started from that
+   checkpoint's weights bit for bit and not from stage 1's last ones; a
+   run stopped by ``--limit-steps`` at the first epoch's end, then
+   ``--resume auto``: the weights and buffers, the AdamW moments and step
+   counts and the schedulers' steps restored bit for bit, the run
+   finished; ``serve`` from the final checkpoint, 16 requests, request 0
+   equal to the in-process forward of the checkpoint on its pair. The
+   combine kernels' launches are read around each validation pass (one
+   forward a batch, no backward), the train path's are the rest of each
+   run (a forward and a backward a step), and serve's around the serve
+   run (one a served or warm-up batch). Save times (blocking and
+   background ms), file sizes, validation ms per batch with the pass's
+   validation-step device ms and image-write host ms, and the resumed
+   run's first step are printed.
 
 Each phase prints one JSON line (and a ``timing`` line); every phase runs
 even after another failed, and a failure ends the run with exit code 1
@@ -197,6 +221,21 @@ TRAIN_BATCH = 6
 TRAIN_PAIRS = 60
 TRAIN_STEPS = 12
 STEP_SHAPE = (2, 128, 192)   # the card-vs-CPU train step
+
+# the lifecycle phase: two stages of LIFE_EPOCHS epochs of LIFE_PAIRS pairs
+# at batch TRAIN_BATCH (2 steps an epoch), each epoch validated on a
+# Sintel-sized tree (LIFE_VAL_PAIRS pairs at batch 2: 2 batches a pass)
+LIFE_EPOCHS = 2
+LIFE_PAIRS = 12
+LIFE_VAL_SHAPE = (436, 1024)
+LIFE_VAL_PAIRS = 4
+LIFE_VAL_BATCH = 2
+# served request 0 against the in-process forward of the same checkpoint
+# on the same pair at the dispatched batch's shape: the same kernels on the
+# same inputs, so the bound is the model phase's card-vs-CPU one, which the
+# two runs should read far below
+LIFE_SERVE_MAX_ABS_PX = 1e-3
+LIFE_BUCKETS = "368x496,448x1024"
 
 # px, final flow, card vs CPU in float32: about 11x the 9.2e-5 px that
 # H100 runs of this phase read on flows up to 71 px (see PERF.md)
@@ -2379,6 +2418,435 @@ def phase_quant(card):
     return launches
 
 
+# -- the training lifecycle: validation, checkpoints, resume, serving -----------
+
+
+def _life_strategy():
+    """Two stages shaped like s1-things.yaml (its optimizer, one-cycle
+    schedule, clip and loss gamma; a ``dataset`` source instead of its
+    augment/concat), ``mode: best``, each with LIFE_EPOCHS epochs and a
+    validation entry on the Sintel-sized tree (sample 0's images)."""
+    stages = ""
+    for k in (1, 2):
+        stages += (
+            f"  - name: synthetic scene, stage {k}\n"
+            f"    id: synthetic/s{k}\n"
+            "    data:\n"
+            f"      epochs: {LIFE_EPOCHS}\n"
+            f"      batch-size: {TRAIN_BATCH}\n"
+            "      source: {type: dataset, spec: dataset.yaml}\n"
+            "    validation:\n"
+            f"      - name: sintel-sized\n"
+            f"        batch-size: {LIFE_VAL_BATCH}\n"
+            "        images: [0]\n"
+            "        source: {type: dataset, spec: val/dataset.yaml}\n"
+            "    model:\n"
+            "      on-stage: {freeze_batchnorm: true}\n"
+            "    loss:\n"
+            "      arguments: {gamma: 0.8}\n"
+            "    optimizer:\n"
+            "      type: adam-w\n"
+            "      parameters: {lr: 0.000125, weight_decay: 0.0001, "
+            "eps: 1.0e-8}\n"
+            "    lr-scheduler:\n"
+            "      instance:\n"
+            "        - type: one-cycle\n"
+            "          parameters: {max_lr: 0.000125, total_steps: "
+            "'100000 + 100',\n"
+            "                       pct_start: 0.05, cycle_momentum: false,\n"
+            "                       anneal_strategy: linear}\n"
+            "    gradient:\n"
+            "      clip: {type: norm, value: 1.0}\n")
+    return "mode: best\nstages:\n" + stages
+
+
+def _tree_equal(a, b):
+    """Bit for bit: tensors by dtype, shape and values, the rest by ==."""
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and a.shape == b.shape and torch.equal(a, b))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(_tree_equal(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_tree_equal, a, b))
+    return a == b
+
+
+CONVEX_KERNELS = ("convex_combine_8x", "convex_combine_8x_bwd")
+
+
+@contextlib.contextmanager
+def _life_probes():
+    """Record, through the port's own callbacks, the live state where each
+    stage starts (``SummaryInspector.on_stage_start``: after a ``mode:
+    best`` load or a resume's restore, before the stage's first step) and
+    each validation pass (``StrategyValidation.run``): its batches, the
+    combine kernels' launches read before and after it, the device time
+    of its validation steps (CUDA events around each, read after the
+    pass) and the host time of its image writes."""
+    from raft_meets_dicl_tpu_torch.inspect import summary
+    from raft_meets_dicl_tpu_torch.strategy import checkpoint
+
+    probes = {"stages": [], "validations": []}
+    originals = (summary.SummaryInspector.on_stage_start,
+                 summary.StrategyValidation.run, summary.make_val_step,
+                 summary.write_images)
+    on_stage_start, validate, make_val_step, write_images = originals
+    current = {}
+
+    def record(self, log, ctx, stage):
+        probes["stages"].append({
+            "stage": stage.index, "step": ctx.step,
+            "model": checkpoint._to_host(ctx.model.module.state_dict()),
+            "optimizer": checkpoint._to_host(
+                ctx.state.tx.optimizer.state_dict()),
+            "lr_sched_inst": [s.state_dict() for s in ctx.lr_sched_inst]})
+        return on_stage_start(self, log, ctx, stage)
+
+    def counted(self, log, ctx, writer, chkpt, stage, epoch):
+        current.update(events=[], image_ms=0.0)
+        runs, before = len(self.runs), _counts()
+        validate(self, log, ctx, writer, chkpt, stage, epoch)
+        after = _counts()
+        for _, end in current["events"]:
+            end.synchronize()
+        probes["validations"].append({
+            "stage": stage.index, "epoch": epoch,
+            "batches": sum(r["batches"] for r in self.runs[runs:]),
+            "seconds": sum(r["seconds"] for r in self.runs[runs:]),
+            "launches": tuple(after[k] - before[k] for k in CONVEX_KERNELS),
+            "step_ms": [a.elapsed_time(b) for a, b in current["events"]],
+            "image_ms": current["image_ms"]})
+        current.clear()
+
+    def timed_val_step(*args, **kwargs):
+        step = make_val_step(*args, **kwargs)
+
+        def run(*inputs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(*inputs)
+            end.record()
+            current["events"].append((start, end))
+            return out
+        return run
+
+    def timed_write_images(*args, **kwargs):
+        # the train path's images too; only a validation pass's are timed
+        t0 = time.perf_counter()
+        write_images(*args, **kwargs)
+        if current:
+            current["image_ms"] += 1e3 * (time.perf_counter() - t0)
+
+    (summary.SummaryInspector.on_stage_start, summary.StrategyValidation.run,
+     summary.make_val_step, summary.write_images) = (
+        record, counted, timed_val_step, timed_write_images)
+    try:
+        yield probes
+    finally:
+        (summary.SummaryInspector.on_stage_start,
+         summary.StrategyValidation.run, summary.make_val_step,
+         summary.write_images) = originals
+
+
+def _life_train(data, out, *extra,
+                inspect=ROOT / "cfg" / "inspect" / "default.yaml"):
+    """``main train`` of the shipped raft/baseline config with the inspect
+    config ``inspect``; returns the context, the probes and the
+    combine kernels' launches in the whole run."""
+    from raft_meets_dicl_tpu_torch import main as port_main
+
+    with _life_probes() as probes:
+        _zero_counts()
+        tctx = port_main.main([
+            "train", "-d", str(data / "strategy.yaml"),
+            "-m", str(ROOT / "cfg" / "model" / "raft-baseline.yaml"),
+            "-i", str(inspect),
+            "-o", str(out), *extra])
+        torch.cuda.synchronize()
+        counts = _counts()
+    launches = tuple(counts[k] for k in CONVEX_KERNELS)
+    return tctx, probes, launches
+
+
+def _life_run_problems(name, tctx, probes, launches, steps):
+    """A run's steps, finite losses and kernel launches, split by path:
+    each validation pass's launches (read around it) must be one forward
+    per batch and no backward; the rest of the run's launches, the train
+    path's, one forward and one backward per step. Returns the problems
+    and the run's (train, validation) launches and validation batches."""
+    problems = []
+    passes = probes["validations"]
+    val = tuple(sum(v["launches"][i] for v in passes) for i in (0, 1))
+    train = tuple(a - b for a, b in zip(launches, val))
+    batches = sum(v["batches"] for v in passes)
+    runs = [run for v in tctx.inspector.val_epoch for run in v.runs]
+    if len(tctx.history) != steps:
+        problems.append(f"{name}: {len(tctx.history)} steps, expected {steps}")
+    if not all(np.isfinite(h["loss"]) and h["finite"] for h in tctx.history):
+        problems.append(f"{name}: non-finite loss or flow")
+    if len(passes) != len(runs) or not passes:
+        problems.append(f"{name}: {len(passes)} validation passes probed, "
+                        f"{len(runs)} recorded")
+    for v in passes:
+        if v["launches"] != (v["batches"], 0):
+            problems.append(
+                f"{name}: the validation pass of stage {v['stage']}, epoch "
+                f"{v['epoch']} launched the combine kernels {v['launches']} "
+                f"times, expected ({v['batches']} batches, 0)")
+    if train != (steps, steps):
+        problems.append(f"{name}: the train path launched the combine "
+                        f"kernels {train} times, expected ({steps}, {steps})")
+    return problems, {"train": train, "validation": val,
+                      "validation_batches": batches}
+
+
+def _life_validation_readings(probes):
+    return [dict(stage=v["stage"], epoch=v["epoch"], batches=v["batches"],
+                 ms_per_batch=1e3 * v["seconds"] / v["batches"],
+                 step_device_ms=v["step_ms"], image_write_ms=v["image_ms"],
+                 launches=list(v["launches"]))
+            for v in probes["validations"]]
+
+
+def _life_event_problems(tctx, validations):
+    """The validation scalars of both stages and four images of sample 0
+    per validation pass, in the run's event file."""
+    from raft_meets_dicl_tpu_torch.inspect import writer
+
+    events = writer.read_events(tctx.inspector.writer.path)
+    values = [v for e in events for v in e.get("values", [])]
+    tags = {v["tag"] for v in values}
+    problems = []
+    for s in (0, 1):
+        pfx = f"Validation:S{s}:synthetic.s{s + 1}:sintel-sized/"
+        missing = {f"{pfx}EndPointError/mean", f"{pfx}Fl-all",
+                   f"{pfx}Loss"} - tags
+        if missing:
+            problems.append(f"event file lacks {sorted(missing)}")
+    images = [v["tag"] for v in values if "image" in v
+              and v["tag"].startswith("Validation:")]
+    if len(images) != 4 * validations or {
+            t.rsplit("/", 1)[1] for t in images} != {
+            "img1", "img2", "flow-gt", "flow-est"}:
+        problems.append(f"event file holds {len(images)} validation images, "
+                        f"expected 4 per pass ({4 * validations})")
+    return problems, len(events)
+
+
+def phase_lifecycle(card):
+    """The training lifecycle of raft/baseline (shipped bf16-policy
+    config, frozen BN) on the card through the CLI, with
+    cfg/inspect/default.yaml: a two-stage ``mode: best`` run with per-epoch
+    validation on a 436x1024 tree and metric-named checkpoints; the same
+    run with an inspect config whose ``compare`` makes stage 1's first
+    checkpoint its best, stopped at stage 2's first step; a run stopped by
+    ``--limit-steps`` at the first epoch's end and resumed by ``--resume
+    auto``; ``serve`` from the final checkpoint."""
+    from raft_meets_dicl_tpu_torch import evaluation, models
+    from raft_meets_dicl_tpu_torch import main as port_main
+    from raft_meets_dicl_tpu_torch.serve import loadgen
+    from raft_meets_dicl_tpu_torch.strategy import checkpoint
+    from raft_meets_dicl_tpu_torch.utils import config
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    steps_per_epoch = LIFE_PAIRS // TRAIN_BATCH
+    steps = 2 * LIFE_EPOCHS * steps_per_epoch
+    problems = []
+    readings = {}
+    paths = {"train": [0, 0], "validation": [0, 0]}
+
+    def run_problems(name, tctx, probes, launches, n):
+        p, split = _life_run_problems(name, tctx, probes, launches, n)
+        problems.extend(p)
+        for path in paths:
+            paths[path] = [a + b for a, b in zip(paths[path], split[path])]
+        return split
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        data = tmp / "data"
+        _write_training_tree(data, TRAIN_SHAPE, LIFE_PAIRS, _life_strategy())
+        _write_training_tree(data / "val", LIFE_VAL_SHAPE, LIFE_VAL_PAIRS, "")
+
+        # 1. the whole run: 4 validations, 4 checkpoints
+        tctx, probes, launches = _life_train(data, tmp / "fresh")
+        split = run_problems("fresh run", tctx, probes, launches, steps)
+        mgr = tctx.checkpoints
+        files = sorted(p.name for p in mgr.path.iterdir())
+        # every epoch's checkpoint: default.yaml keeps the 2 latest and
+        # the 2 best of each stage, and each stage has LIFE_EPOCHS <= 2
+        expected = [f"raft_baseline-s{s}_e{e}_b"
+                    f"{(s * LIFE_EPOCHS + e + 1) * steps_per_epoch}-epe"
+                    for s in (0, 1) for e in range(LIFE_EPOCHS)]
+        if len(files) != len(expected) or not all(
+                any(f.startswith(x) for f in files) for x in expected):
+            problems.append(f"checkpoints {files}, expected {expected}")
+        best = mgr.get_best(stage=0)
+        stage2 = next(s for s in probes["stages"] if s["stage"] == 1)
+        if not _tree_equal(stage2["model"], best.load().state.model):
+            problems.append("stage 2 did not start from stage 1's best "
+                            f"checkpoint '{best.path.name}'")
+        final = mgr.get_latest()
+        resaved = tmp / "resaved.ckpt"
+        checkpoint.Checkpoint.load(final.path).save(resaved)
+        if resaved.read_bytes() != final.path.read_bytes():
+            problems.append("a checkpoint re-saved after loading differs "
+                            "from its file")
+        p, n_events = _life_event_problems(tctx, len(probes["validations"]))
+        problems += p
+        readings["fresh"] = dict(
+            steps=len(tctx.history), launches=list(launches),
+            train_launches=list(split["train"]),
+            validation_launches=list(split["validation"]),
+            validation_batches=split["validation_batches"],
+            checkpoints=files, best_of_stage_1=best.path.name,
+            event_records=n_events, saves=mgr.saves,
+            validation=_life_validation_readings(probes),
+            losses=[h["loss"] for h in tctx.history])
+
+        # 2. stage 1's best is not its latest: default.yaml with a
+        # ``compare`` on the step count (the earliest checkpoint is best),
+        # stopped after stage 2's first step; stage 2 must start from
+        # stage 1's first checkpoint, not from its live weights
+        cfg = config.load(ROOT / "cfg" / "inspect" / "default.yaml")
+        cfg["checkpoints"]["compare"] = ["{n_steps}"]
+        config.store(tmp / "inspect-earliest.yaml", cfg)
+        n = LIFE_EPOCHS * steps_per_epoch + 1
+        tctx, probes, launches = _life_train(
+            data, tmp / "earliest", "--limit-steps", str(n),
+            inspect=tmp / "inspect-earliest.yaml")
+        split = run_problems("earliest-best run", tctx, probes, launches, n)
+        best = tctx.checkpoints.get_best(stage=0)
+        last = tctx.checkpoints.get_latest(stage=0)
+        starts = [s for s in probes["stages"] if s["stage"] == 1]
+        if (best is None or last is None or best.idx_epoch != 0
+                or last.idx_epoch != LIFE_EPOCHS - 1 or len(starts) != 1):
+            problems.append(
+                f"earliest-best run: stage 1's best {best and best.path.name}"
+                f", latest {last and last.path.name}, {len(starts)} stage-2 "
+                "starts; expected epoch 0 best, the last epoch latest, 1")
+        else:
+            start = starts[0]["model"]
+            if not _tree_equal(start, best.load().state.model):
+                problems.append(
+                    "earliest-best run: stage 2 did not start from stage "
+                    f"1's best checkpoint '{best.path.name}'")
+            if _tree_equal(start, last.load().state.model):
+                problems.append(
+                    "earliest-best run: stage 2 started from stage 1's "
+                    f"latest weights '{last.path.name}', not its best")
+        readings["earliest_best"] = dict(
+            steps=len(tctx.history), launches=list(launches),
+            train_launches=list(split["train"]),
+            validation_launches=list(split["validation"]),
+            best_of_stage_1=best and best.path.name,
+            latest_of_stage_1=last and last.path.name,
+            validation=_life_validation_readings(probes))
+
+        # 3. stopped at the first epoch's end, then --resume auto
+        out = tmp / "resume"
+        stopped, probes, launches = _life_train(
+            data, out, "--limit-steps", str(steps_per_epoch))
+        stop = run_problems("stopped run", stopped, probes, launches,
+                            steps_per_epoch)
+        saved = stopped.checkpoints.get_latest()
+        resumed, probes, launches = _life_train(data, out, "--resume",
+                                                "auto")
+        res = run_problems("resumed run", resumed, probes, launches,
+                           steps - steps_per_epoch)
+        chkpt = saved.load()
+        restored = probes["stages"][0]
+        if restored["step"] != steps_per_epoch or resumed.step != steps:
+            problems.append(f"resumed at step {restored['step']} and ended "
+                            f"at {resumed.step}")
+        for what, live, stored in (
+                ("parameters and batch-norm buffers", restored["model"],
+                 chkpt.state.model),
+                ("AdamW moments and step counts",
+                 restored["optimizer"]["state"], chkpt.state.optimizer["state"]),
+                ("schedulers' steps", restored["lr_sched_inst"],
+                 chkpt.state.lr_sched_inst)):
+            if not _tree_equal(live, stored):
+                problems.append(f"--resume auto did not restore the {what} "
+                                f"of '{saved.path.name}' bit for bit")
+        readings["resume"] = dict(
+            checkpoint=saved.path.name,
+            stopped_train_launches=list(stop["train"]),
+            stopped_validation_launches=list(stop["validation"]),
+            resumed_train_launches=list(res["train"]),
+            resumed_validation_launches=list(res["validation"]),
+            adam_step=float(next(iter(
+                chkpt.state.optimizer["state"].values()))["step"]),
+            sched_last_step=chkpt.state.lr_sched_inst[0]["last_step"],
+            first_step_ms=resumed.history[0]["ms"],
+            step_ms=[h["ms"] for h in resumed.history])
+
+        # 4. serve the final checkpoint; request 0 against the in-process
+        # forward of the same checkpoint on its pair, at the dispatched
+        # batch's shape (request 0 tiled, as the batcher fills)
+        served = resumed.checkpoints.get_latest().path
+        cfg = tmp / "serve.yaml"
+        cfg.write_text(
+            "serve:\n"
+            f"  model: {ROOT / 'cfg' / 'model' / 'raft-baseline.yaml'}\n"
+            f"  checkpoint: {served}\n"
+            f"  buckets: {LIFE_BUCKETS}\n"
+            "  batch-size: 4\n"
+            "  requests: 16\n"
+            "  rate: 50\n")
+        _zero_counts()
+        report = port_main.main(["serve", "-c", str(cfg)])
+        torch.cuda.synchronize()
+        serve_launches = _counts()["convex_combine_8x"]
+
+        spec = models.load(ROOT / "cfg" / "model" / "raft-baseline.yaml")
+        spec.model.init(torch.Generator().manual_seed(0), "cuda")
+        checkpoint.Checkpoint.load(served).apply(module=spec.model.module)
+        bucket = tuple(int(x) for x in LIFE_BUCKETS.split(",")[0].split("x"))
+        raw = loadgen.synthetic_pair(bucket, np.random.default_rng(0))
+        pair = [torch.from_numpy(np.repeat(2 * x[None] - 1, 4, 0)).cuda()
+                for x in raw]
+        _, flow = evaluation.make_eval_fn(spec.model)(*pair)
+        diff = float(np.abs(flow[0].cpu().numpy()
+                            - report["results"][0].flow).max())
+
+    expected = report["batches"] + len(report["warmup"])
+    if report["completed"] != 16 or report["errors"] or report["rejected"]:
+        problems.append(f"serve completed {report['completed']}/16, errors "
+                        f"{report['errors']}, rejected {report['rejected']}")
+    if report["nonfinite"]:
+        problems.append(f"serve: {report['nonfinite']} non-finite flows")
+    if serve_launches != expected:
+        problems.append(f"serve launched the combine {serve_launches} times, "
+                        f"expected {expected}")
+    if not diff <= LIFE_SERVE_MAX_ABS_PX:
+        problems.append(f"served request 0 is {diff} px from the in-process "
+                        f"forward (bound {LIFE_SERVE_MAX_ABS_PX} px)")
+    readings["serve"] = dict(
+        checkpoint=served.name, completed=report["completed"],
+        batches=report["batches"], launches=serve_launches,
+        p50_ms=report["p50_ms"], p99_ms=report["p99_ms"],
+        request0_max_abs_diff_px=diff, bound_px=LIFE_SERVE_MAX_ABS_PX)
+
+    emit(phase="lifecycle", model="raft/baseline (bf16 policy, frozen BN)",
+         train_shape=[TRAIN_BATCH, *TRAIN_SHAPE],
+         validation_shape=[LIFE_VAL_BATCH, *LIFE_VAL_SHAPE], card=card,
+         **readings)
+    if problems:
+        raise AssertionError("lifecycle phase: " + "; ".join(problems))
+    # the combine kernels' launches of the three paths, each read around
+    # its own work and summed over the runs
+    return {
+        "train": dict(zip(CONVEX_KERNELS, paths["train"])),
+        "validation": dict(zip(CONVEX_KERNELS, paths["validation"])),
+        "serve": {"convex_combine_8x": serve_launches},
+    }
+
+
 def kernels_line(results):
     """The nine kernels with their checks, times and launches.
     ``launches`` is the count of the main path of the slice that ported
@@ -2406,6 +2874,8 @@ def kernels_line(results):
         **results["phase_lookup_kernels"]["paths"],
         **{f"quant {run}": counts
            for run, counts in results["phase_quant"].items()},
+        **{f"lifecycle_{path}": counts
+           for path, counts in results["phase_lifecycle"].items()},
     }
 
     def launches(name):
@@ -2657,7 +3127,8 @@ def main():
               phase_ctf_model, phase_ctf_serve, phase_ctf_train_step,
               phase_ctf_train, phase_wcp_kernels, phase_fs_model,
               phase_fs_serve, phase_fs_train_step, phase_fs_train,
-              phase_fs_train_all_levels, phase_lookup_kernels, phase_quant)
+              phase_fs_train_all_levels, phase_lookup_kernels, phase_quant,
+              phase_lifecycle)
     for phase in phases:
         run(phase)
     if failed:

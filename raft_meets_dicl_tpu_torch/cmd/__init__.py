@@ -1,7 +1,9 @@
+from . import checkpoint as checkpoint_mod
 from . import serve as serve_mod
 from . import train as train_mod
 
+checkpoint = checkpoint_mod.checkpoint
 serve = serve_mod.serve
 train = train_mod.train
 
-__all__ = ["serve", "train"]
+__all__ = ["checkpoint", "serve", "train"]

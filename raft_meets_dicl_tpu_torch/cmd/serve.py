@@ -2,7 +2,9 @@
 
 Counterpart of ``raft_meets_dicl_tpu/cmd/serve.py`` (the single-replica,
 non-prebuild branch). Boots one replica on the device (model with seeded
-weights, one warm-up batch per bucket), runs the built-in open-loop load
+weights, or a checkpoint's: ``--checkpoint`` or the config's
+``checkpoint`` key, relative to the config file; one warm-up batch per
+bucket), runs the built-in open-loop load
 generator against the scheduler and prints the report (p50/p99 latency,
 pairs/s, shed/error counts) as JSON.
 
@@ -43,13 +45,15 @@ def serve(args):
     """Run the serve command; returns the report it prints, which also
     counts the dispatched device batches (``batches``, and per bucket
     ``batches_by_bucket``), the served flows
-    with a non-finite value (``nonfinite``) and lists the warm-up runs."""
+    with a non-finite value (``nonfinite``) and lists the warm-up runs,
+    with the completed ``FlowResult``s in submission order (``results``,
+    not printed)."""
     cfg = {}
     if getattr(args, "config", None):
         cfg = utils.config.load(args.config)
         cfg = cfg.get("serve", cfg)
 
-    for key in ("wire-format", "checkpoint", "ladder", "video", "quant"):
+    for key in ("wire-format", "ladder", "video", "quant"):
         if cfg.get(key):
             raise NotImplementedError(
                 f"serve config key '{key}' is not ported yet (ROADMAP "
@@ -78,8 +82,11 @@ def serve(args):
     logging.info(f"shape buckets: {buckets.describe()}")
 
     batch_size = int(_pick(args.batch_size, cfg, "batch-size"))
-    session = serving.ServeSession(spec, buckets, batch_size=batch_size,
-                                   device=args.device)
+    checkpoint = getattr(args, "checkpoint", None)
+    if checkpoint is None and cfg.get("checkpoint") is not None:
+        checkpoint = _resolve(cfg["checkpoint"], getattr(args, "config", None))
+    session = serving.ServeSession(spec, buckets, checkpoint=checkpoint,
+                                   batch_size=batch_size, device=args.device)
 
     warmup = session.warm_pool()
     for o in warmup:
@@ -121,4 +128,4 @@ def serve(args):
         f"p50 {report['p50_ms']:.1f} ms, p99 {report['p99_ms']:.1f} ms, "
         f"{report['pairs_per_sec']:.2f} pairs/s")
     print(json.dumps(report))
-    return report
+    return report | {"results": results}

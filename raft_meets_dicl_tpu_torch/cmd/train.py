@@ -3,14 +3,23 @@
 
 Creates the run directory ``<output>/<timestamp><suffix>`` with
 ``main.log``, ``model.txt`` (the module's repr) and ``config.json`` (seeds,
-model, strategy, arguments), seeds the RNGs, loads the model and the
-strategy and runs the ``TrainingContext`` on one device: ``cuda`` unless
-the caller asks for the CPU; without CUDA it fails rather than training
-elsewhere.
+model, strategy, inspector, arguments), seeds the RNGs, loads the model,
+the strategy and the inspector (``-i``; default
+``cfg/inspect/default.yaml``, as in JAX: TensorBoard summaries under
+``tb.<model>``, per-epoch validation and metric-named checkpoints under
+``checkpoints/``) and runs the ``TrainingContext`` on one device:
+``cuda`` unless the caller asks for the CPU; without CUDA it fails rather
+than training elsewhere.
 
-The flags of parts not ported yet (checkpoints and resume, inspect
-configs, environment configs, meshes, wire formats, device augmentation)
-do not exist; ROADMAP slice 2 items 4-10 bring them.
+``--checkpoint FILE`` starts from a checkpoint's weights;
+``--resume FILE`` restores a checkpoint's full state and resumes where it
+was written, ``--resume auto`` from the newest valid checkpoint of the
+model under ``--output`` (corrupt ones quarantined). Both take the port's
+files and the JAX package's.
+
+The flags of parts not ported yet (environment configs, meshes, wire
+formats, device augmentation, non-finite policies) do not exist; ROADMAP
+slice 2 items 4-10 bring them.
 """
 
 import datetime
@@ -21,10 +30,11 @@ from pathlib import Path
 
 import torch
 
-from .. import models, strategy, utils
+from .. import inspect, models, strategy, utils
 from ..strategy.training import TrainingContext
 
 _ROOT = Path(__file__).resolve().parents[2]
+DEFAULT_INSPECT = _ROOT / "cfg" / "inspect" / "default.yaml"
 
 
 def _git_head():
@@ -39,8 +49,9 @@ def _git_head():
 
 def train(args):
     """Run the train command; returns the ``TrainingContext`` (its
-    ``history`` holds every step's loss, lr, norms and time) with the run
-    directory as ``path``."""
+    ``history`` holds every step's loss, lr, norms and time; its
+    ``inspector`` and ``checkpoints`` the validation runs and saves) with
+    the run directory as ``path``."""
     timestamp = datetime.datetime.now()
 
     device = torch.device(args.device)
@@ -49,9 +60,12 @@ def train(args):
             "training on 'cuda' needs a CUDA device, and "
             "torch.cuda.is_available() is False; pass --device cpu to train "
             "on the CPU")
+    if args.checkpoint and args.resume:
+        raise ValueError("cannot set both --checkpoint and --resume")
 
     cfg_seeds = utils.config.load(args.seeds) if args.seeds else None
     cfg_model, cfg_strat = args.model, args.data
+    cfg_inspc = args.inspect if args.inspect is not None else DEFAULT_INSPECT
     if cfg_model is None:
         raise ValueError("no model configuration specified")
     if cfg_strat is None:
@@ -68,6 +82,7 @@ def train(args):
         "%(asctime)s %(levelname)s %(name)s: %(message)s"))
     logging.getLogger().addHandler(handler)
 
+    inspector = chkptm = None
     try:
         logging.info(f"starting: time is {timestamp}, writing to '{path_out}'")
         logging.info(f"description: {args.comment if args.comment else '<not available>'}")
@@ -87,6 +102,10 @@ def train(args):
         logging.info(f"loading strategy configuration: file='{cfg_strat}'")
         strat = strategy.load(cfg_strat)
 
+        logging.info(f"loading metrics/inspection configuration: "
+                     f"file='{cfg_inspc}'")
+        inspc = inspect.load(cfg_inspc)
+
         with open(path_out / "model.txt", "w") as fd:
             fd.write(repr(model.model.module))
 
@@ -101,16 +120,52 @@ def train(args):
             "seeds": seeds.get_config(),
             "model": model.get_config(),
             "strategy": strat.get_config(),
+            "inspect": inspc.get_config(),
         })
 
         logging.info(f"device: {device}" + (
             f" ({torch.cuda.get_device_name(device)})"
             if device.type == "cuda" else ""))
+        inspector, chkptm = inspc.build(model.id, path_out)
+
+        if args.checkpoint or args.resume:
+            logging.warning("saved config not sufficient for "
+                            "reproducibility due to checkpoint data")
+
         tctx = TrainingContext(
-            path_out, strat, model.model, model.model.get_adapter(),
-            model.loss, model.input, device=device, step_limit=args.steps)
-        tctx.run(args.start_stage)
+            path_out, strat, model.id, model.model, model.model.get_adapter(),
+            model.loss, model.input, inspector, chkptm, device=device,
+            step_limit=args.steps)
+
+        chkpt = None
+        if args.checkpoint:
+            logging.info(f"loading checkpoint '{args.checkpoint}'")
+            warm = strategy.Checkpoint.load(args.checkpoint)
+            tctx._ensure_variables()
+            warm.apply(module=model.model.module)
+
+        if args.resume == "auto":
+            found = strategy.find_auto_resume(
+                Path(args.output), model=model.id, log=logging.getLogger())
+            if found is None:
+                raise ValueError(
+                    f"--resume auto: no valid checkpoint for model "
+                    f"'{model.id}' found under '{args.output}'")
+            resume_path, chkpt = found
+            logging.info(
+                f"auto-resume: picking up from '{resume_path}' (stage "
+                f"{chkpt.iteration.stage}, epoch {chkpt.iteration.epoch}, "
+                f"step {chkpt.iteration.step})")
+        elif args.resume:
+            logging.info(f"loading checkpoint '{args.resume}'")
+            chkpt = strategy.Checkpoint.load(args.resume)
+
+        tctx.run(args.start_stage, args.start_epoch, chkpt)
         return tctx
     finally:
+        if chkptm is not None:
+            chkptm.wait()
+        if inspector is not None:
+            inspector.close()
         logging.getLogger().removeHandler(handler)
         handler.close()

@@ -12,6 +12,11 @@ own copy here: conv kernels HWIO -> OIHW, transposed-conv kernels (flax
 makes torch's k4/s2/p1 geometry equal flax's 'SAME', batch-norm
 ``scale``/``bias`` -> ``weight``/``bias``, ``batch_stats`` ``mean``/``var``
 -> ``running_mean``/``running_var``.
+
+The JAX package's checkpoint files load through the same rules
+(:func:`load_jax_checkpoint`): the weights, and optax's Adam / AdamW state
+(``count``, ``mu``, ``nu``) as torch's ``step``, ``exp_avg`` and
+``exp_avg_sq``.
 """
 
 from collections.abc import Mapping
@@ -245,3 +250,72 @@ def load_jax_variables(module, variables):
     state = jax_variables_to_state_dict(variables, rules_for(module))
     module.load_state_dict(state, strict=True)
     return module
+
+
+# -- the JAX package's checkpoints ----------------------------------------------
+
+
+def _adam_states(tree, path=()):
+    """Yield ``(path, state)`` for every optax ``ScaleByAdamState`` in a
+    flax state dict of an optax state (a mapping with exactly ``count``,
+    ``mu`` and ``nu``), found by structure wherever the chain nests it;
+    raise ``ValueError`` naming any other non-empty state."""
+    if isinstance(tree, Mapping):
+        if set(tree) == {"count", "mu", "nu"}:
+            yield path, tree
+            return
+        for key in tree:
+            yield from _adam_states(tree[key], (*path, str(key)))
+        return
+    raise ValueError(
+        f"optimizer state '{'.'.join(path) or '<root>'}' is not Adam's "
+        "(count, mu, nu): only the adam / adam-w chains are converted")
+
+
+def optax_state_to_torch(opt_state, module, optimizer):
+    """Map a JAX checkpoint's optax state (the flax state dict of the
+    shipped clip -> adam / adam-w chain) onto ``optimizer``'s
+    ``state_dict()`` form: ``count`` -> each parameter's ``step``, ``mu``
+    -> ``exp_avg``, ``nu`` -> ``exp_avg_sq``, through ``module``'s rules.
+    ``optimizer`` must be ``torch.optim.Adam`` or ``AdamW`` over
+    ``module``'s parameters."""
+    if not isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW)):
+        raise ValueError(f"cannot map optax Adam state onto "
+                         f"{type(optimizer).__name__}")
+    found = list(_adam_states(opt_state))
+    if len(found) != 1:
+        raise ValueError(f"expected one optax ScaleByAdamState, found "
+                         f"{len(found)}")
+    (_, adam), = found
+
+    rules = rules_for(module)
+    exp_avg = jax_variables_to_state_dict({"params": adam["mu"]}, rules)
+    exp_avg_sq = jax_variables_to_state_dict({"params": adam["nu"]}, rules)
+    step = torch.tensor(float(np.asarray(adam["count"])), dtype=torch.float32)
+
+    names = {id(p): n for n, p in module.named_parameters()}
+    target = optimizer.state_dict()
+    state, index = {}, 0
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            name = names[id(p)]
+            state[index] = {"step": step.clone(), "exp_avg": exp_avg[name],
+                            "exp_avg_sq": exp_avg_sq[name]}
+            index += 1
+    return {"state": state, "param_groups": target["param_groups"]}
+
+
+def load_jax_checkpoint(path, module, optimizer=None):
+    """Load a checkpoint the JAX package wrote (``RMDT2``, or the legacy
+    ``RMDT1``) into ``module``, and its Adam / AdamW state into
+    ``optimizer`` when one is given. A corrupt file raises
+    ``strategy.checkpoint.CheckpointCorrupt``. Returns the
+    ``Checkpoint``, whose iteration, metrics and scheduler states are kept
+    as the file holds them."""
+    from .strategy.checkpoint import Checkpoint
+
+    chkpt = Checkpoint.load(path)
+    if chkpt.format != "jax":
+        raise ValueError(f"'{path}' is not a JAX package checkpoint")
+    chkpt.apply(module=module, optimizer=optimizer)
+    return chkpt

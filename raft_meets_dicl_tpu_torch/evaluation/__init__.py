@@ -3,7 +3,8 @@ plain single-device branch).
 
 ``make_eval_fn(model)`` returns ``step(img1, img2) -> (raw_output,
 final_flow)`` that runs under ``torch.inference_mode()`` on the device the
-model lives on. The evaluation loop, metrics and the ladder/warm-start
+model lives on; validation (``inspect.summary.make_val_step``) and serving
+run it. The evaluation loop (``main evaluate``) and the ladder/warm-start
 programs come with later slices (ROADMAP queue A).
 """
 

@@ -1,0 +1,106 @@
+"""Flow-quality metrics: EPE, Fl-all, AAE, flow magnitude (counterpart of
+``raft_meets_dicl_tpu/metrics/flowmetrics.py``: the same config surface
+and keys, the math in ``functional``)."""
+
+from collections import OrderedDict
+from typing import List
+
+from . import functional as F
+from .common import Metric
+
+
+class EndPointError(Metric):
+    type = "epe"
+
+    @classmethod
+    def from_config(cls, cfg):
+        cls._typecheck(cfg)
+        key = cfg.get("key", "EndPointError/")
+        dist = list(cfg.get("distances", [1, 3, 5]))
+        return cls(dist, key)
+
+    def __init__(self, distances: List[float] = (1, 3, 5),
+                 key: str = "EndPointError/"):
+        self.distances = list(distances)
+        self.key = key
+
+    def get_config(self):
+        return {"type": self.type, "key": self.key,
+                "distances": self.distances}
+
+    def compute(self, ctx, estimate, target, valid, loss):
+        vals = F.end_point_error(estimate, target, valid, self.distances)
+
+        result = OrderedDict()
+        result[f"{self.key}mean"] = vals["mean"]
+        for d in self.distances:
+            result[f"{self.key}{d}px"] = vals[f"{d}px"]
+        return result
+
+
+class FlAll(Metric):
+    type = "fl-all"
+
+    @classmethod
+    def from_config(cls, cfg):
+        cls._typecheck(cfg)
+        return cls(cfg.get("key", "Fl-all"))
+
+    def __init__(self, key: str = "Fl-all"):
+        self.key = key
+
+    def get_config(self):
+        return {"type": self.type, "key": self.key}
+
+    def compute(self, ctx, estimate, target, valid, loss):
+        return {self.key: F.fl_all(estimate, target, valid)}
+
+
+class AverageAngularError(Metric):
+    """``masked: true`` restricts the mean to valid pixels."""
+
+    type = "aae"
+
+    @classmethod
+    def from_config(cls, cfg):
+        cls._typecheck(cfg)
+        return cls(cfg.get("key", "AverageAngularError"),
+                   bool(cfg.get("masked", False)))
+
+    def __init__(self, key: str = "AverageAngularError",
+                 masked: bool = False):
+        self.key = key
+        self.masked = masked
+
+    def get_config(self):
+        return {"type": self.type, "key": self.key, "masked": self.masked}
+
+    def compute(self, ctx, estimate, target, valid, loss):
+        v = valid if self.masked else None
+        return {self.key: F.average_angular_error(estimate, target, v)}
+
+
+class FlowMagnitude(Metric):
+    """``masked: true`` restricts the mean to valid pixels."""
+
+    type = "flow-magnitude"
+
+    @classmethod
+    def from_config(cls, cfg):
+        cls._typecheck(cfg)
+        return cls(cfg.get("ord", 2), cfg.get("key", "FlowMagnitude"),
+                   bool(cfg.get("masked", False)))
+
+    def __init__(self, ord: float = 2, key: str = "FlowMagnitude",
+                 masked: bool = False):
+        self.ord = ord
+        self.key = key
+        self.masked = masked
+
+    def get_config(self):
+        return {"type": self.type, "key": self.key, "ord": self.ord,
+                "masked": self.masked}
+
+    def compute(self, ctx, estimate, target, valid, loss):
+        v = valid if self.masked else None
+        return {self.key: F.flow_magnitude(estimate, self.ord, v)}

@@ -2,8 +2,8 @@
 
 Counterpart of ``raft_meets_dicl_tpu/serve/session.py`` (plain path). The
 session owns everything device-side: the model spec, its module on the
-device (seeded initial weights; checkpoint loading comes with a later
-slice), the inference step (``evaluation.make_eval_fn``), and a warm-up
+device (seeded initial weights, then a checkpoint's when one is given:
+the port's or the JAX package's), the inference step (``evaluation.make_eval_fn``), and a warm-up
 per bucket so that the first request does not pay the kernel build or the
 first-call cost of the convolution library.
 
@@ -11,6 +11,7 @@ The session runs on ``device`` ("cuda" unless the caller asks for the
 CPU); a CUDA device without CUDA raises rather than running elsewhere.
 """
 
+import logging
 import time
 
 import numpy as np
@@ -18,10 +19,10 @@ import torch
 
 from .. import evaluation
 from ..models.input import ShapeBuckets
+from ..strategy.checkpoint import Checkpoint
 
 _LATER = {
     "wire": "wire formats",
-    "checkpoint": "checkpoint loading",
     "mesh": "multi-device serving",
     "ladder": "the iteration ladder",
     "video": "video sessions",
@@ -40,8 +41,7 @@ class ServeSession:
     def __init__(self, spec, buckets, wire=None, checkpoint=None,
                  batch_size=4, mesh=None, ladder=None, video=False,
                  quant=None, device="cuda"):
-        for name, value in (("wire", wire), ("checkpoint", checkpoint),
-                            ("mesh", mesh), ("ladder", ladder),
+        for name, value in (("wire", wire), ("mesh", mesh), ("ladder", ladder),
                             ("video", video), ("quant", quant)):
             if value:
                 raise NotImplementedError(
@@ -69,13 +69,16 @@ class ServeSession:
                 "serving on 'cuda' needs a CUDA device, and "
                 "torch.cuda.is_available() is False; pass --device cpu to "
                 "run on the CPU")
-        self._init_variables()
+        self._init_variables(checkpoint)
         self.eval_fn = evaluation.make_eval_fn(self.model)
 
-    def _init_variables(self):
+    def _init_variables(self, checkpoint):
         # seed 0 on a CPU generator, as the JAX session's PRNGKey(0): the
         # same weights on every device
         self.model.init(torch.Generator().manual_seed(0), self.device)
+        if checkpoint is not None:
+            logging.info(f"loading checkpoint, file='{checkpoint}'")
+            Checkpoint.load(checkpoint).apply(module=self.model.module)
 
     def _normalize(self, img):
         lo, hi = self.input.clip

@@ -1,13 +1,18 @@
-"""Training strategy layer: specs and the training loop (counterpart of
-``raft_meets_dicl_tpu/strategy``; checkpoints and the inspector are not
-ported yet)."""
+"""Training strategy layer: specs, the training loop, checkpoints and the
+inspector protocol (counterpart of ``raft_meets_dicl_tpu/strategy``)."""
 
-from . import config, spec, training
+from . import checkpoint, config, inspector, spec, training
+from .checkpoint import (
+    Checkpoint, CheckpointCorrupt, CheckpointManager, find_auto_resume,
+)
 from .config import load, load_stage
+from .inspector import Inspector
 from .spec import Stage, Strategy
 from .training import TrainingContext
 
 __all__ = [
-    "config", "spec", "training",
-    "Stage", "Strategy", "TrainingContext", "load", "load_stage",
+    "checkpoint", "config", "inspector", "spec", "training",
+    "Checkpoint", "CheckpointCorrupt", "CheckpointManager", "Inspector",
+    "Stage", "Strategy", "TrainingContext", "find_auto_resume", "load",
+    "load_stage",
 ]

@@ -302,6 +302,11 @@ class GradientScalerSpec:
             "growth-interval": self.growth_interval,
         }
 
+    def build(self):
+        """The scaler slot of a checkpoint, as the JAX package stores it;
+        no loss scaling happens."""
+        return {"enabled": self.enabled, "scale": self.init_scale}
+
 
 class GradientSpec:
     @classmethod
@@ -335,7 +340,8 @@ class LrScheduler:
     """Host-side stateful scheduler with torch-like step semantics.
 
     ``lr()`` returns the rate for the *next* optimizer update; ``step()``
-    advances.
+    advances. State round-trips via ``state_dict``/``load_state_dict`` for
+    checkpointing (``{"last_step"}``, as in the JAX package).
     """
 
     def __init__(self, base_lr):
@@ -347,6 +353,12 @@ class LrScheduler:
 
     def step(self):
         self.last_step += 1
+
+    def state_dict(self):
+        return {"last_step": self.last_step}
+
+    def load_state_dict(self, state):
+        self.last_step = int(state["last_step"])
 
 
 class OneCycleLr(LrScheduler):

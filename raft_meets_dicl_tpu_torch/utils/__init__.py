@@ -1,5 +1,5 @@
 """Utility modules."""
 
-from . import config, env, expr, seeds
+from . import config, env, expr, msgpack, seeds
 
-__all__ = ["config", "env", "expr", "seeds"]
+__all__ = ["config", "env", "expr", "msgpack", "seeds"]

@@ -231,8 +231,8 @@ def test_unported_layouts_are_refused(tree):
 
 def test_strategy_config_matches_jax(tree):
     """A one-stage strategy in the s1-things form loads in both packages
-    to the same config; a stage with validation entries is refused by the
-    port's trainer."""
+    to the same config, also with a validation entry and ``mode: best``,
+    which the port's trainer takes."""
     (tree / "dataset.yaml").write_text(json.dumps(_spec(tree)))
     stage = {
         "name": "synthetic", "id": "synthetic/s1",
@@ -259,9 +259,12 @@ def test_strategy_config_matches_jax(tree):
     assert _norm(again.get_config()) == _norm(actual.get_config())
 
     with_validation = dict(stage, validation=[
-        {"source": stage["data"]["source"]}])
-    strat = tstrategy.load(tree, {"mode": "continuous",
-                                  "stages": [with_validation]})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstrategy.TrainingContext(tree, strat, None, None, None, None,
-                                  device="cpu")
+        {"source": stage["data"]["source"], "batch-size": 2,
+         "images": [0]}])
+    cfg = {"mode": "best", "stages": [with_validation]}
+    strat = tstrategy.load(tree, cfg)
+    assert _norm(strat.get_config()) == \
+        _norm(jstrategy.load(tree, cfg).get_config())
+    tctx = tstrategy.TrainingContext(tree, strat, "raft/baseline", None,
+                                     None, None, None, device="cpu")
+    assert tctx.strategy.stages[0].validation[0].batch_size == 2
