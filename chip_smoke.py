@@ -53,7 +53,9 @@ the card and fails (non-zero exit, no result line) on any fault:
    3-5 at b10 384x512, level 3 also bf16; the 448x1024 serve bucket's
    level 3; two ragged tiny cases with far out-of-bounds centres, whose
    windows must be exact zeros), each timed beside the plain version, its
-   bound and ``F.grid_sample`` (checked against the plain version first);
+   bound and ``F.grid_sample`` (in float32 checked against the plain
+   version first; in bf16 timed if it takes bf16, its refusal printed if
+   not);
 10. ctf model: ``raft+dicl/ctf-l3`` in float32, full width, iterations
    (4, 3, 3), at 1x384x512, card vs CPU from one seeded init, TF32 off;
    the sampler launches exactly 10 times per forward, the combine once;
@@ -158,7 +160,27 @@ the card and fails (non-zero exit, no result line) on any fault:
    run (one a served or warm-up batch). Save times (blocking and
    background ms), file sizes, validation ms per batch with the pass's
    validation-step device ms and image-write host ms, and the resumed
-   run's first step are printed.
+   run's first step are printed;
+22. augmented train: the shipped ``s1-things.yaml`` data graph through
+   ``main train`` (shipped bf16-policy ``raft/baseline``, frozen BN):
+   ``augment`` over ``concat`` of the FlyingThings clean and final passes,
+   loaded through the shipped ``cfg/data`` sources and FlyingThings spec
+   (``multi`` layout, PFM flows) with the spec's path at a 540x960
+   FlyingThings3D-shaped tree (4 batches of 6 an epoch); its six
+   augmentations, crop 720x400, batch 6, AdamW, one-cycle and clip as
+   shipped; 2 epochs, 8 steps, its two validation entries on a 2-pair
+   436x1024 tree. Run at the loader's default 4 workers and again at
+   ``min(os.cpu_count(), 16)`` through the stage's ``loader`` key: every
+   loss finite, the combine kernels launched once forward and once
+   backward a step and once a validation batch; in the default run the
+   pairs the steps receive in epochs 0 and 1 equal, bit for bit, the
+   stage's input pipeline run in this process after ``set_epoch(0)`` /
+   ``set_epoch(1)``, every index once an epoch, and no pair of epoch 1
+   equals one of epoch 0. Printed: median step ms and pairs/s (at the
+   median and over the window), ``loader_batch_ms`` of the stage's loader
+   alone, the CPU count, torch's and cv2's threads and the workers, one
+   sample's host ms for its decode and each augmentation, and phase 8's
+   median step beside these.
 
 Each phase prints one JSON line (and a ``timing`` line); every phase runs
 even after another failed, and a failure ends the run with exit code 1
@@ -500,6 +522,22 @@ QUANT_MODEL_REL = {
     "first": {"raft u8": 2e-5, "raft i8": 2e-5, "fs u8": 2e-5},
     "final": {"raft u8": 2.5e-3, "raft i8": 2.5e-3, "fs u8": 1.5e-2},
 }
+
+# augmented training (phase 22): the shipped s1-things.yaml over a
+# FlyingThings3D-shaped tree of AUG_PAIRS pairs a pass (4 batches of 6 an
+# epoch over clean + final), AUG_EPOCHS epochs; validation on
+# AUG_VAL_PAIRS pairs at Sintel's size; each augmentation timed on
+# AUG_PROBE_SAMPLES samples
+S1_THINGS = ROOT / "cfg" / "strategy" / "baseline" / "raft" / "s1-things.yaml"
+AUG_FRAME_SHAPE = (540, 960)
+AUG_PAIRS = 12
+AUG_EPOCHS = 2
+AUG_VAL_PAIRS = 2
+AUG_PROBE_SAMPLES = 3
+
+# readings a phase hands to a later one, which prints them beside its own
+SHARED = {}
+
 
 def emit(**fields):
     print(json.dumps(fields), flush=True)
@@ -1072,39 +1110,37 @@ def _strategy(name, batch, on_stage, max_lr, gamma=None,
         "      clip: {type: norm, value: 1.0}\n")
 
 
-def _train_command(model_cfg, shape, batch, pairs, steps, strategy):
-    """The train command end to end on a synthetic tree in a temporary
-    directory; returns its context, readings and every kernel's launches
-    in the run."""
+def _run_train(strategy, model_cfg, out, steps, *extra):
+    """``main train`` of ``strategy`` with ``model_cfg``, stopped after
+    ``steps`` steps; returns its context, its wall seconds, the peak
+    device memory and every kernel's launches in the run."""
     from raft_meets_dicl_tpu_torch import main as port_main
 
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        t0 = time.perf_counter()
-        _write_training_tree(tmp / "data", shape, pairs, strategy)
-        write_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    tctx = port_main.main([
+        "train", "-d", str(strategy), "-m", str(model_cfg), "-o", str(out),
+        "--limit-steps", str(steps), *extra])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    return tctx, wall_s, torch.cuda.max_memory_allocated(), _counts()
 
-        torch.cuda.reset_peak_memory_stats()
-        _zero_counts()
-        t0 = time.perf_counter()
-        tctx = port_main.main([
-            "train", "-d", str(tmp / "data" / "strategy.yaml"),
-            "-m", str(model_cfg), "-o", str(tmp / "runs"),
-            "--limit-steps", str(steps)])
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-        launches = _counts()
-        peak = torch.cuda.max_memory_allocated()
-        run_files = sorted(p.name for p in tctx.path.iterdir())
 
-        # the stage's loader alone for one epoch, as an epoch of the run
-        # starts it: its worker processes start, then each batch arrives
-        loader_ms = []
+def _loader_batch_ms(tctx):
+    """The stage's loader alone for one epoch, as an epoch of the run
+    starts it: its worker processes start, then each batch arrives."""
+    loader_ms = []
+    t0 = time.perf_counter()
+    for _ in tctx.data:
+        loader_ms.append(1e3 * (time.perf_counter() - t0))
         t0 = time.perf_counter()
-        for _ in tctx.data:
-            loader_ms.append(1e3 * (time.perf_counter() - t0))
-            t0 = time.perf_counter()
+    return loader_ms
 
+
+def _run_readings(tctx, batch, steps, wall_s):
+    """A run's steps, losses and rates; problems if it did not run
+    ``steps`` finite steps."""
     history = tctx.history
     problems = []
     if len(history) != steps or tctx.step != steps:
@@ -1112,22 +1148,41 @@ def _train_command(model_cfg, shape, batch, pairs, steps, strategy):
     if not all(np.isfinite(h["loss"]) and h["finite"] for h in history):
         problems.append("non-finite loss or flow: "
                         f"{[h['loss'] for h in history]}")
-    if not {"config.json", "main.log", "model.txt"} <= set(run_files):
-        problems.append(f"run directory holds {run_files}")
 
     # the first step pays one-time costs (loader start, library warm-up):
     # the median leaves it out, the whole window's rate keeps it
     step_ms = [h["ms"] for h in history]
     median_ms = statistics.median(step_ms[1:])
     readings = dict(
-        shape=[batch, *shape], steps=len(history),
-        losses=[h["loss"] for h in history],
+        steps=len(history), losses=[h["loss"] for h in history],
         lrs=[h["lr"] for h in history],
         grad_norms=[h["grad_norm"] for h in history],
         step_ms=step_ms, median_step_ms=median_ms,
         pairs_per_sec=batch * 1e3 / median_ms,
         window_pairs_per_sec=batch * len(history) * 1e3 / sum(step_ms),
-        wall_pairs_per_sec=batch * len(history) / wall_s,
+        wall_pairs_per_sec=batch * len(history) / wall_s)
+    return readings, problems
+
+
+def _train_command(model_cfg, shape, batch, pairs, steps, strategy):
+    """The train command end to end on a synthetic tree in a temporary
+    directory; returns its readings and problems."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        _write_training_tree(tmp / "data", shape, pairs, strategy)
+        write_s = time.perf_counter() - t0
+
+        tctx, wall_s, peak, launches = _run_train(
+            tmp / "data" / "strategy.yaml", model_cfg, tmp / "runs", steps)
+        run_files = sorted(p.name for p in tctx.path.iterdir())
+        loader_ms = _loader_batch_ms(tctx)
+
+    run, problems = _run_readings(tctx, batch, steps, wall_s)
+    if not {"config.json", "main.log", "model.txt"} <= set(run_files):
+        problems.append(f"run directory holds {run_files}")
+    readings = dict(
+        shape=[batch, *shape], **run,
         max_memory_allocated=peak, launches=launches,
         loader_workers=tctx.data.num_workers, loader_batch_ms=loader_ms,
         wall_s=round(wall_s, 3), dataset_write_s=round(write_s, 3),
@@ -1153,6 +1208,8 @@ def phase_train(card):
         raise AssertionError("train phase: " + "; ".join(problems))
     emit(phase="train", model="raft/baseline (bf16 policy, frozen BN)",
          iterations=12, card=card, **readings)
+    # phase 22 prints it beside its own, augmented run
+    SHARED["train_median_step_ms"] = readings["median_step_ms"]
     return launches
 
 
@@ -1200,7 +1257,8 @@ def _grid_sample_window(f2, coords, radius):
     gy = coords[..., 1][:, None, None] + d[None, None, :, None, None]
     gx, gy = torch.broadcast_tensors(gx, gy)          # (B, K, K, H, W)
     grid = torch.stack((2 * gx / (w2 - 1) - 1, 2 * gy / (h2 - 1) - 1), -1)
-    grid = grid.reshape(b, k * k * h, w, 2).contiguous()
+    # the grid in f2's dtype, as F.grid_sample takes it
+    grid = grid.reshape(b, k * k * h, w, 2).to(f2.dtype).contiguous()
     f2n = f2.permute(0, 3, 1, 2)
 
     def call(inp=f2n):
@@ -1291,6 +1349,23 @@ def phase_sw_kernels(card):
                 library_bwd_ms=gpu_timer_ms(lambda: torch.autograd.grad(
                     lib_out, f2n, dlib, retain_graph=True)))
             del lib_out
+        else:
+            # whether the library call takes bf16 (its grid then rounds to
+            # bf16, so its window is far off: timed, not checked)
+            call, as_window = _grid_sample_window(f2, coords, r)
+            try:
+                lib_err = (as_window(call()).float()
+                           - ref.float()).abs().max().item()
+                f2n = f2.permute(0, 3, 1, 2).detach().requires_grad_(True)
+                lib_out = call(f2n)
+                dlib = dout.permute(0, 5, 1, 2, 3, 4).reshape(lib_out.shape)
+                lib = dict(
+                    library_err=lib_err, library_ms=gpu_timer_ms(call),
+                    library_bwd_ms=gpu_timer_ms(lambda: torch.autograd.grad(
+                        lib_out, f2n, dlib, retain_graph=True)))
+                del lib_out
+            except RuntimeError as e:
+                lib = dict(library_refused=str(e).splitlines()[0])
 
         b, h2, w2, c, h, w = case["shape"]
         positions = b * h * w
@@ -2847,6 +2922,269 @@ def phase_lifecycle(card):
     }
 
 
+# -- augmented training: the shipped s1-things.yaml data graph ---------------
+
+
+def _write_things_tree(root, pairs):
+    """A FlyingThings3D-shaped tree: ``pairs`` + 1 frames of one sequence
+    (TRAIN/A/0000, left camera, from frame 0006) at 540x960 in both passes
+    (final: clean blurred), each frame a smooth random texture shifted by a
+    constant (3, -2) px from the last; 3-channel PFM flows into the future
+    and into the past for every frame (hard links of one file each)."""
+    import cv2
+
+    from raft_meets_dicl_tpu_torch.data import io
+
+    h, w = AUG_FRAME_SHAPE
+    dx, dy = 3, -2
+    frames = range(6, 6 + pairs + 1)
+    seq = Path("TRAIN") / "A" / "0000"
+    for direction, sign in (("Future", 1), ("Past", -1)):
+        d = root / "optical_flow" / seq / f"into_{direction.lower()}" / "left"
+        d.mkdir(parents=True)
+        flow = np.zeros((h, w, 3), np.float32)
+        flow[..., :2] = (sign * dx, sign * dy)
+        first = d / f"OpticalFlowInto{direction}_{frames[0]:04d}_L.pfm"
+        io.write_pfm(first, flow)
+        for i in frames[1:]:
+            os.link(first, d / f"OpticalFlowInto{direction}_{i:04d}_L.pfm")
+
+    rng = np.random.default_rng(4)
+    base = cv2.resize(rng.integers(0, 256, (h // 4, w // 4, 3), np.uint8),
+                      (w, h), interpolation=cv2.INTER_CUBIC)
+    for pass_ in ("clean", "final"):
+        d = root / f"frames_{pass_}pass" / seq / "left"
+        d.mkdir(parents=True)
+        for k, i in enumerate(frames):
+            frame = np.roll(base, (k * dy, k * dx), axis=(0, 1))
+            if pass_ == "final":
+                frame = cv2.GaussianBlur(frame, (5, 5), 1.5)
+            cv2.imwrite(str(d / f"{i:04d}.png"), frame)
+
+
+def _s1_things(tmp, num_workers=None):
+    """The shipped s1-things.yaml, its two FlyingThings sources and the
+    shipped FlyingThings spec, copied under ``tmp/cfg`` with the spec's
+    ``path`` at ``tmp/things``, 2 epochs and the validation entries on the
+    tree at ``tmp/val``; ``num_workers`` goes to the stage's ``loader``
+    key. Returns the strategy's path."""
+    from raft_meets_dicl_tpu_torch.utils import config
+
+    cfg = tmp / "cfg"
+    spec = config.load(ROOT / "cfg" / "data" / "dataset"
+                       / "ufreiburg-flyingthings3d.yaml")
+    config.store(cfg / "data" / "dataset" / "ufreiburg-flyingthings3d.yaml",
+                 spec | {"path": str(tmp / "things")})
+    for pass_ in ("clean", "final"):
+        name = f"ufreiburg-flyingthings3d-{pass_}.train.yaml"
+        config.store(cfg / "data" / name,
+                     config.load(ROOT / "cfg" / "data" / name))
+
+    strategy = config.load(S1_THINGS)
+    stage, = strategy["stages"]
+    stage["data"]["epochs"] = AUG_EPOCHS
+    for entry in stage["validation"]:
+        entry["source"] = {"type": "dataset",
+                           "spec": str(tmp / "val" / "dataset.yaml")}
+    if num_workers is not None:
+        stage["loader"] = {"num_workers": num_workers}
+    path = cfg / "strategy" / "baseline" / "raft" / S1_THINGS.name
+    config.store(path, strategy)
+    return path
+
+
+@contextlib.contextmanager
+def _recorded_batches():
+    """The batches each train step receives, with their epoch (the
+    tensors themselves, read after the run)."""
+    from raft_meets_dicl_tpu_torch.strategy import training
+
+    batches = []
+    original = training.TrainingContext.run_instance
+
+    def run_instance(self, stage, epoch, i, batch):
+        batches.append((epoch, batch))
+        return original(self, stage, epoch, i, batch)
+
+    training.TrainingContext.run_instance = run_instance
+    try:
+        yield batches
+    finally:
+        training.TrainingContext.run_instance = original
+
+
+def _pair_digest(img1, img2, flow, valid):
+    """One pair's four arrays, bit for bit, as one digest."""
+    import hashlib
+
+    h = hashlib.blake2b()
+    for x in (img1, img2, flow, valid):
+        x = np.ascontiguousarray(x)
+        h.update(f"{x.dtype}{x.shape}".encode())
+        h.update(x.tobytes())
+    return h.hexdigest()
+
+
+def _epoch_problems(tctx, batches):
+    """Each pair the steps received in epoch e against the stage's own
+    input pipeline run in this process after ``set_epoch(e)``: every pair
+    must equal one index's, bit for bit, every index once an epoch, and no
+    pair of epoch 1 may equal one of epoch 0. Returns the problems and the
+    indices in the order the steps received them."""
+    source = tctx.data.source   # the stage's adapter over its data graph
+    expected = {}
+    for epoch in (0, 1):
+        tctx.current_stage.data.source.set_epoch(epoch)
+        expected[epoch] = {
+            _pair_digest(*(x[0] for x in source[i][:4])): i
+            for i in range(len(source))}
+    problems, order, repeated = [], {0: [], 1: []}, 0
+    for epoch, (img1, img2, flow, valid, _) in batches:
+        for r in range(img1.shape[0]):
+            digest = _pair_digest(img1[r].numpy(), img2[r].numpy(),
+                                  flow[r].numpy(), valid[r].numpy())
+            order[epoch].append(expected[epoch].get(digest))
+            repeated += digest in expected[1 - epoch]
+    if repeated:
+        problems.append(f"{repeated} pairs of one epoch equal pairs of the "
+                        "other")
+    for epoch, indices in order.items():
+        if sorted(i for i in indices if i is not None) != \
+                list(range(len(source))) or None in indices:
+            problems.append(
+                f"epoch {epoch}'s pairs are not the in-process pipeline's "
+                f"at set_epoch({epoch}) (matched indices {indices})")
+    return problems, order
+
+
+def _augmentation_ms(augment):
+    """Host ms of one sample's decode and of each augmentation, in this
+    process, on AUG_PROBE_SAMPLES samples (medians; the draws are the
+    samples' own)."""
+    decode, ms = [], {}
+    for k in range(AUG_PROBE_SAMPLES):
+        t0 = time.perf_counter()
+        sample = augment.source[k]
+        decode.append(1e3 * (time.perf_counter() - t0))
+        rng = augment._rng_for(sample[4][0])
+        for aug in augment.augmentations:
+            t0 = time.perf_counter()
+            sample = aug(*sample, rng=rng)
+            ms.setdefault(aug.type, []).append(
+                1e3 * (time.perf_counter() - t0))
+    per_aug = {k: statistics.median(v) for k, v in ms.items()}
+    return {"decode_ms": statistics.median(decode), "augment_ms": per_aug,
+            "augment_total_ms": sum(per_aug.values())}
+
+
+def phase_augmented_train(card):
+    """The shipped s1-things.yaml data graph through ``main train`` on the
+    card (shipped bf16-policy raft/baseline, frozen BN): augment over
+    concat of the FlyingThings clean and final passes (multi layout, PFM
+    flows) on a 540x960 tree, its six augmentations, crop 720x400, batch 6,
+    AdamW, one-cycle and clip as shipped; 2 epochs of 4 steps, validated
+    each epoch on a 436x1024 tree. Run at the loader's default 4 workers
+    and again at min(cpu count, 16) through the stage's ``loader`` key.
+    The combine kernels launch once forward and once backward a step and
+    once a validation batch; the pairs the steps receive in epochs 0 and 1
+    (default run) are the stage's pipeline's at ``set_epoch(0)`` and
+    ``set_epoch(1)`` in this process, bit for bit."""
+    import cv2
+
+    from raft_meets_dicl_tpu_torch.utils import config
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model_cfg = ROOT / "cfg" / "model" / "raft-baseline.yaml"
+    stage, = config.load(S1_THINGS)["stages"]
+    batch = stage["data"]["batch-size"]
+    width, height = next(a["size"] for a in stage["data"]["source"][
+        "augmentations"] if a["type"] == "crop")
+    steps = AUG_EPOCHS * 2 * AUG_PAIRS // batch
+    val_batches = AUG_EPOCHS * len(stage["validation"]) * -(
+        -AUG_VAL_PAIRS // stage["validation"][0]["batch-size"])
+    problems, readings = [], {}
+    paths = {"train": [0, 0], "validation": [0, 0]}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        _write_things_tree(tmp / "things", AUG_PAIRS)
+        _write_training_tree(tmp / "val", LIFE_VAL_SHAPE, AUG_VAL_PAIRS, "")
+        write_s = time.perf_counter() - t0
+
+        for name, workers in (("default_workers", None),
+                              ("wide_workers", min(os.cpu_count(), 16))):
+            strategy = _s1_things(tmp, workers)
+            with _recorded_batches() as batches, _life_probes() as probes:
+                tctx, wall_s, peak, counts = _run_train(
+                    strategy, model_cfg, tmp / name, steps)
+            run, p = _run_readings(tctx, batch, steps, wall_s)
+            problems += [f"{name}: {x}" for x in p]
+
+            launches = tuple(counts[k] for k in CONVEX_KERNELS)
+            passes = probes["validations"]
+            val = tuple(sum(v["launches"][i] for v in passes)
+                        for i in (0, 1))
+            train = tuple(a - b for a, b in zip(launches, val))
+            n_val = sum(v["batches"] for v in passes)
+            if train != (steps, steps):
+                problems.append(f"{name}: the train path launched the "
+                                f"combine kernels {train} times, expected "
+                                f"({steps}, {steps})")
+            if val != (n_val, 0) or n_val != val_batches:
+                problems.append(f"{name}: validation launched the combine "
+                                f"kernels {val} times over {n_val} "
+                                f"batches, expected ({val_batches}, 0)")
+            for path, split in (("train", train), ("validation", val)):
+                paths[path] = [a + b for a, b in zip(paths[path], split)]
+            shapes = {tuple(b[0].shape) for _, b in batches}
+            if shapes != {(batch, height, width, 3)}:
+                problems.append(f"{name}: batches of shapes {shapes}")
+
+            extra = {}
+            if workers is None:
+                # the epoch reaches the forked workers
+                p, order = _epoch_problems(tctx, batches)
+                problems += [f"{name}: {x}" for x in p]
+                extra = dict(epoch_indices=order, host=_augmentation_ms(
+                    tctx.current_stage.data.source))
+            readings[name] = dict(
+                **run, max_memory_allocated=peak,
+                train_launches=list(train), validation_launches=list(val),
+                validation=_life_validation_readings(probes),
+                loader_workers=tctx.data.num_workers,
+                loader_batch_ms=_loader_batch_ms(tctx),
+                wall_s=round(wall_s, 3), **extra)
+            del batches[:]
+
+    # the loader's sustained pace: its workers each decode and augment
+    # whole batches, so one arrives every batch * (one sample's host ms) /
+    # workers; it sets the pace where that exceeds phase 8's step (a run
+    # of 4 batches an epoch decodes them all at once at the epoch's start,
+    # so its steps do not show it)
+    phase8 = SHARED.get("train_median_step_ms")
+    host = readings["default_workers"]["host"]
+    sample_ms = host["decode_ms"] + host["augment_total_ms"]
+    for r in readings.values():
+        r["sustained_batch_ms"] = batch * sample_ms / r["loader_workers"]
+        r["loader_sets_pace"] = (None if phase8 is None
+                                 else r["sustained_batch_ms"] > phase8)
+    emit(phase="augmented-train",
+         model="raft/baseline (bf16 policy, frozen BN)",
+         strategy=S1_THINGS.name,
+         shape=[batch, height, width], frames=list(AUG_FRAME_SHAPE),
+         pairs_per_epoch=2 * AUG_PAIRS, cpu_count=os.cpu_count(),
+         torch_threads=torch.get_num_threads(),
+         cv2_threads=cv2.getNumThreads(),
+         train_median_step_ms=phase8, dataset_write_s=round(write_s, 3),
+         card=card, **readings)
+    if problems:
+        raise AssertionError("augmented train phase: " + "; ".join(problems))
+    return {"train": dict(zip(CONVEX_KERNELS, paths["train"])),
+            "validation": dict(zip(CONVEX_KERNELS, paths["validation"]))}
+
+
 def kernels_line(results):
     """The nine kernels with their checks, times and launches.
     ``launches`` is the count of the main path of the slice that ported
@@ -2876,6 +3214,8 @@ def kernels_line(results):
            for run, counts in results["phase_quant"].items()},
         **{f"lifecycle_{path}": counts
            for path, counts in results["phase_lifecycle"].items()},
+        **{f"augmented_{path}": counts
+           for path, counts in results["phase_augmented_train"].items()},
     }
 
     def launches(name):
@@ -3128,7 +3468,7 @@ def main():
               phase_ctf_train, phase_wcp_kernels, phase_fs_model,
               phase_fs_serve, phase_fs_train_step, phase_fs_train,
               phase_fs_train_all_levels, phase_lookup_kernels, phase_quant,
-              phase_lifecycle)
+              phase_lifecycle, phase_augmented_train)
     for phase in phases:
         run(phase)
     if failed:

@@ -17,9 +17,13 @@ was written, ``--resume auto`` from the newest valid checkpoint of the
 model under ``--output`` (corrupt ones quarantined). Both take the port's
 files and the JAX package's.
 
-The flags of parts not ported yet (environment configs, meshes, wire
-formats, device augmentation, non-finite policies) do not exist; ROADMAP
-slice 2 items 4-10 bring them.
+The strategy's data graph is the JAX package's: ``augment`` with its 15
+host augmentations, ``concat``, ``repeat``, ``subset``, ``cache``, the
+forwards/backwards sources and the ``generic``, ``generic-backwards`` and
+``multi`` layouts (``synth`` is refused). The flags of parts not ported
+yet (environment configs, meshes, wire formats, device augmentation,
+non-finite policies) do not exist; ROADMAP slice 2 items 7-10 and slice 7
+entry 5 bring them.
 """
 
 import datetime

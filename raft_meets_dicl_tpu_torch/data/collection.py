@@ -39,6 +39,22 @@ class Collection:
     def description(self):
         raise NotImplementedError
 
+    def set_epoch(self, epoch):
+        """Advance epoch-dependent state (seeded augmentation draws).
+
+        Recurses through the wrapper graph via the conventional
+        ``source``/``sources`` attributes; the trainer calls this before
+        iterating each epoch, *before* the loader forks its worker
+        processes, so every worker inherits the value.
+        """
+        for attr in ("source", "sources"):
+            val = getattr(self, attr, None)
+            if val is None:
+                continue
+            for child in val if isinstance(val, (list, tuple)) else (val,):
+                if isinstance(child, Collection):
+                    child.set_epoch(epoch)
+
 
 @dataclass
 class SampleArgs:

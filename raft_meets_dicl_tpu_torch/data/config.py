@@ -3,27 +3,34 @@
 Counterpart of ``raft_meets_dicl_tpu/data/config.py``. ``load`` accepts a
 config-file path, a (path, cfg-dict) pair, or a (path, relative-config-file)
 pair; nested ``source`` references inside configs resolve relative to the
-file they appear in. Only the ``dataset`` source type is ported; the
-wrapper types of the JAX package raise.
+file they appear in, which is what makes the ``cfg/`` graph composable.
+Every source type of the JAX package is registered but ``synth``, which
+renders on the device and raises.
 """
 
 from pathlib import Path
 
 from ..utils import config
+from .augment import Augment
+from .combinators import Cache, Concat, Repeat, Subset
 from .dataset import Dataset
+from .fw_bw import ForwardsBackwardsBatch, ForwardsBackwardsEstimate
 
-_TYPES = {Dataset.type: Dataset}
-
-_LATER = ("augment", "concat", "cache", "repeat", "subset",
-          "forwards-backwards-batch", "forwards-backwards-estimate", "synth")
+_TYPES = {
+    cls.type: cls
+    for cls in (
+        Dataset, Augment, Cache, Concat, Repeat, Subset,
+        ForwardsBackwardsBatch, ForwardsBackwardsEstimate,
+    )
+}
 
 
 def _dispatch(path, cfg):
     ty = cfg["type"]
-    if ty in _LATER:
+    if ty == "synth":
         raise NotImplementedError(
-            f"data source type '{ty}' is not ported yet (ROADMAP slice 2 "
-            "item 4, host augmentation and data combinators)")
+            "data source type 'synth' is not ported yet (ROADMAP slice 7 "
+            "entry 5, the on-device data engine)")
     if ty not in _TYPES:
         raise ValueError(f"unknown data collection type '{ty}'")
     return _TYPES[ty].from_config(path, cfg)

@@ -7,11 +7,10 @@ parameters (e.g. ``pass: clean|final`` on Sintel) that substitute into the
 patterns, supports split files (one token per sample) and sample filters,
 and loads images/flow through pluggable per-format loaders.
 
-Config types round-trip: ``dataset`` collections, ``generic`` layouts,
-``combine`` / ``exclude`` / ``file`` filters, ``generic-image`` /
-``generic-flow`` loaders. Counterpart of the JAX package's
-``data/dataset.py``; its ``generic-backwards`` and ``multi`` layouts are
-not ported yet and raise.
+Config types round-trip: ``dataset`` collections, ``generic`` /
+``generic-backwards`` / ``multi`` layouts, ``combine`` / ``exclude`` /
+``file`` filters, ``generic-image`` / ``generic-flow`` loaders.
+Counterpart of the JAX package's ``data/dataset.py``.
 """
 
 from pathlib import Path
@@ -257,6 +256,39 @@ class _SequenceLayout(Layout):
 class GenericLayout(_SequenceLayout):
     type = "generic"
     step = 1
+
+
+class GenericBackwardsLayout(_SequenceLayout):
+    type = "generic-backwards"
+    step = -1
+
+
+class MultiLayout(Layout):
+    """Selects one of several layouts via a dataset parameter."""
+
+    type = "multi"
+
+    @classmethod
+    def from_config(cls, cfg):
+        cls._typecheck(cfg)
+        instances = {k: build_layout(v) for k, v in cfg["instances"].items()}
+        return cls(cfg["parameter"], instances)
+
+    def __init__(self, param, layouts):
+        super().__init__()
+        self.param = param
+        self.layouts = layouts
+
+    def get_config(self):
+        return {
+            "type": self.type,
+            "parameter": self.param,
+            "instances": {k: v.get_config() for k, v in self.layouts.items()},
+        }
+
+    def build_file_list(self, path, param_desc, param_vals):
+        layout = self.layouts[param_vals[self.param]]
+        return layout.build_file_list(path, param_desc, param_vals)
 
 
 # -- parameters and splits --------------------------------------------------
@@ -529,18 +561,13 @@ class GenericFlowLoader(FileLoader):
 
 # -- registries -------------------------------------------------------------
 
-_LAYOUTS = {cls.type: cls for cls in (GenericLayout,)}
-_LATER_LAYOUTS = ("generic-backwards", "multi")
+_LAYOUTS = {cls.type: cls for cls in (GenericLayout, GenericBackwardsLayout, MultiLayout)}
 _FILTERS = {cls.type: cls for cls in (CombineFilter, ExcludeFilter, FileFilter)}
 _LOADERS = {cls.type: cls for cls in (GenericImageLoader, GenericFlowLoader)}
 
 
 def build_layout(cfg):
     ty = cfg["type"]
-    if ty in _LATER_LAYOUTS:
-        raise NotImplementedError(
-            f"dataset layout '{ty}' is not ported yet (ROADMAP slice 2 item "
-            "4, host augmentation and data combinators)")
     if ty not in _LAYOUTS:
         raise ValueError(f"unknown layout type '{ty}'")
     return _LAYOUTS[ty].from_config(cfg)

@@ -93,3 +93,15 @@ def read_pfm(file):
 
     # PFM rows are stored bottom-to-top
     return data.reshape(h, w, channels)[::-1].copy()
+
+
+def write_pfm(file, data):
+    """Write a (H, W, 3) or (H, W) float array as a little-endian ``.pfm``
+    (the Freiburg datasets' flow format, rows bottom-to-top)."""
+    data = np.asarray(data, dtype="<f4")
+    header = b"PF" if data.ndim == 3 else b"Pf"
+    if data.ndim == 3 and data.shape[2] != 3:
+        raise ValueError("a color PFM holds 3 channels")
+    with open(file, "wb") as fd:
+        fd.write(header + f"\n{data.shape[1]} {data.shape[0]}\n-1.0\n".encode())
+        data[::-1].tofile(fd)

@@ -13,6 +13,8 @@ the batches in worker processes and hands them over as CPU tensors
 
 import copy
 import logging
+import queue
+import threading
 from dataclasses import replace
 
 import numpy as np
@@ -526,28 +528,78 @@ def collate(samples, shuffle=False, rng=None):
 
 
 def _collate_tensors(samples):
-    """``DataLoader`` collate: samples arrive already in batch order."""
+    """``DataLoader`` collate, in a worker: the samples concatenated in
+    index order (the caller shuffles the batch within itself)."""
     img1, img2, flow, valid, meta = collate(samples)
     return (torch.from_numpy(img1), torch.from_numpy(img2),
             torch.from_numpy(flow), torch.from_numpy(valid), meta)
+
+
+def _in_background(items, depth):
+    """Iterate ``items`` in a background thread, up to ``depth`` ahead, in
+    order. An exception raised there is raised in the caller; closing the
+    generator stops the thread and waits for it."""
+    results = queue.Queue(depth)
+    stop = threading.Event()
+    end = object()
+
+    def put(entry):
+        while not stop.is_set():
+            try:
+                results.put(entry, timeout=0.1)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def run():
+        try:
+            for item in items:
+                if not put((item, None)):
+                    return
+            put((end, None))
+        except Exception as e:  # noqa: BLE001 - raised in the caller
+            put((end, e))
+
+    thread = threading.Thread(target=run, name="loader-shuffle", daemon=True)
+    thread.start()
+    try:
+        while True:
+            item, error = results.get()
+            if error is not None:
+                raise error
+            if item is end:
+                return
+            yield item
+    finally:
+        stop.set()
+        thread.join()
 
 
 class Loader:
     """Batching iterator over an adapter on ``torch.utils.data``.
 
     The epoch order reshuffles on every ``__iter__`` when ``shuffle`` is
-    set, and each batch is shuffled within itself, both drawn from the
-    loader's own numpy generator in the JAX ``Loader``'s order (epoch
-    permutation, then one permutation per batch), so the same seed gives
-    the same batches as the JAX package. Without an explicit ``seed`` the
-    generator is seeded from the global numpy RNG, so run-level seeding
-    (``utils.seeds``) still makes data order reproducible. Every ported
-    source yields one sample per index, so permuting a batch's indices is
-    permuting its samples.
+    set, and each batch is shuffled within itself after its samples are
+    concatenated, both drawn from the loader's own numpy generator in the
+    JAX ``Loader``'s order (the epoch permutation, then one permutation of
+    each collated batch, batch by batch), so the same seed gives the same
+    batches as the JAX package, also for sources that yield more than one
+    pair per index (``forwards-backwards-batch`` yields two). Without an
+    explicit ``seed`` the generator is seeded from the global numpy RNG,
+    so run-level seeding (``utils.seeds``) still makes data order
+    reproducible.
 
     Batches are ``(img1, img2, flow, valid, meta)`` with NHWC float32 CPU
     tensors (``valid`` bool), decoded by ``num_workers`` worker processes
-    (0 decodes in the caller), pinned when ``pin_memory`` is set.
+    (0 decodes in the caller) forked anew at every ``__iter__``, so they
+    inherit the source's state as it is then (``Collection.set_epoch``).
+    With workers, a shuffled batch's permutation is drawn and gathered by
+    a thread of the caller's process, in batch order, as many batches
+    ahead as the workers have in flight (two each).
+    With ``pin_memory`` the batches are in pinned memory: copied there
+    after the gather, or by ``torch.utils.data``'s pinning thread when
+    nothing is shuffled.
     """
 
     def __init__(self, source, batch_size=1, shuffle=False, num_workers=4,
@@ -577,14 +629,39 @@ class Loader:
             chunk = order[start: start + self.batch_size]
             if self.drop_last and len(chunk) < self.batch_size:
                 break
-            if self.shuffle and len(chunk) > 1:
-                chunk = chunk[self.rng.permutation(len(chunk))]
             batches.append([int(i) for i in chunk])
         return batches
 
+    def _shuffle(self, batch):
+        """The JAX ``collate``'s within-batch permutation of a collated
+        batch (none for a single pair), then pinned if ``pin_memory``."""
+        img1, img2, flow, valid, meta = batch
+        perm = None
+        if img1.shape[0] > 1:
+            perm = self.rng.permutation(img1.shape[0])
+            index = torch.from_numpy(perm)
+            meta = [meta[i] for i in perm]
+
+        def gather(t):
+            if perm is not None:
+                t = torch.index_select(t, 0, index)
+            # pinned by a copy: ``pin_memory()`` reuses the caching host
+            # allocator's blocks, where ``torch.empty(pin_memory=True)``
+            # gathered straight into pinned memory took longer a batch
+            return t.pin_memory() if self.pin_memory else t
+
+        return gather(img1), gather(img2), gather(flow), gather(valid), meta
+
     def __iter__(self):
-        loader = torch.utils.data.DataLoader(
+        loader = iter(torch.utils.data.DataLoader(
             self.source, batch_sampler=self._batches(),
             num_workers=self.num_workers, collate_fn=_collate_tensors,
-            pin_memory=self.pin_memory)
-        yield from loader
+            pin_memory=self.pin_memory and not self.shuffle))
+        if not self.shuffle:
+            yield from loader
+        elif self.num_workers <= 0:
+            yield from map(self._shuffle, loader)
+        else:
+            # as far ahead as the workers' batches in flight (two each)
+            yield from _in_background(map(self._shuffle, loader),
+                                      depth=2 * self.num_workers)

@@ -9,8 +9,9 @@ step reads nothing back to the host: every entry of its ``aux`` is a
 device tensor, and the trainer decides when to fetch one.
 
 Not ported yet, and refused by name: meshes (ROADMAP slice 2 item 10,
-DDP), wire formats (item 9), on-device augmentation (item 4), in-step
-accumulation (item 8) and the ``skip`` non-finite guard (item 7).
+DDP), wire formats (item 9), in-step accumulation (item 8), the ``skip``
+non-finite guard (item 7) and on-device augmentation (slice 7 entry 5,
+the on-device data engine; host augmentation is the ``augment`` source).
 """
 
 import torch
@@ -37,8 +38,7 @@ class TrainState:
 
 def _refuse(what, item):
     raise NotImplementedError(
-        f"make_train_step: {what} is not ported yet (ROADMAP slice 2 item "
-        f"{item})")
+        f"make_train_step: {what} is not ported yet (ROADMAP {item})")
 
 
 def make_train_step(model, loss_fn, mesh=None, loss_args=None,
@@ -55,16 +55,18 @@ def make_train_step(model, loss_fn, mesh=None, loss_args=None,
     merge over the config defaults.
     """
     if mesh is not None:
-        _refuse("a device mesh", "10, DDP")
+        _refuse("a device mesh", "slice 2 item 10, DDP")
     if wire is not None:
-        _refuse("a wire format", "9, wire formats")
+        _refuse("a wire format", "slice 2 item 9, wire formats")
     if augment is not None:
-        _refuse("on-device augmentation", "4, host augmentation")
+        _refuse("on-device augmentation",
+                "slice 7 entry 5, the on-device data engine")
     if int(accumulate) > 1:
-        _refuse("in-step gradient accumulation", "8, in-step accumulation")
+        _refuse("in-step gradient accumulation",
+                "slice 2 item 8, in-step accumulation")
     if nonfinite not in (None, "raise"):
         _refuse(f"the non-finite policy '{nonfinite}'",
-                "7, non-finite skip/rollback policies")
+                "slice 2 item 7, non-finite skip/rollback policies")
 
     loss_args = dict(loss_args or {})
     model_args = dict(model_args or {})

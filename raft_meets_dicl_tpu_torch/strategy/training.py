@@ -273,6 +273,10 @@ class TrainingContext:
         self.model_adapter.on_epoch(stage, epoch, **stage.model_on_epoch_args)
         self.inspector.on_epoch_start(log, self, stage, epoch)
 
+        # epoch-seeded host augmentation, set before the loader's
+        # ``__iter__`` forks its workers, which inherit the value
+        stage.data.source.set_epoch(epoch)
+
         self._last_mark = self._mark()
         for i, batch in enumerate(self.data):
             self.run_instance(stage, epoch, i, batch)
