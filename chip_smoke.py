@@ -180,7 +180,31 @@ the card and fails (non-zero exit, no result line) on any fault:
    median and over the window), ``loader_batch_ms`` of the stage's loader
    alone, the CPU count, torch's and cv2's threads and the workers, one
    sample's host ms for its decode and each augmentation, and phase 8's
-   median step beside these.
+   median step beside these;
+23. evaluate: ``main evaluate`` of the shipped ``raft/baseline`` config
+   (bf16 policy, 12 iterations) from a checkpoint of its seeded initial
+   weights written in the phase by the port's ``Checkpoint.save``, over
+   the shipped ``cfg/data`` Sintel (clean, training) and KITTI 2015
+   (training) sources with their specs' path at synthetic trees: Sintel
+   436x1024, 2 scenes of 6 frames (10 pairs, .flo flows), batch 4, with
+   a report and ``visual:flow`` images (3 batches, 3 combine launches),
+   then with ``--fwbw`` and ``visual:occlusion`` (3 + 10 launches); KITTI
+   8 pairs at 375x1242, 370x1224, 376x1241 and 374x1238 (16-bit
+   ``flow_occ`` PNGs, 30% of pixels invalid), batch 4, ``--buckets
+   376x1248`` (2 batches, 2 launches), then ``--buckets group`` (3
+   batches, each remainder padded to 4, 3 launches). Each report and its
+   JSONL hold every sample once in the loader's order; each sample's EPE
+   and loss equal this process's recomputation (``make_eval_fn`` on the
+   same batches, ``metrics/functional.py``, the config's loss) within
+   1e-3 px + 1e-4 relative and 1e-4 relative; the pad waste equals the
+   trees' extents'; every final flow and metric is finite; the combine
+   kernel never launches backward. Then each of the 12 flow formats from
+   a one-sample run (``--flow-only`` where the format reads no ground
+   truth): every file decodes at 436x1024. Printed per sweep: samples/s,
+   dispatch and drain ms per batch (``EvalRunStats.phases``), the
+   forward's device ms per batch (CUDA events), host ms per sample for
+   the loss and metrics and for the image write, the pad waste and the
+   peak device memory.
 
 Each phase prints one JSON line (and a ``timing`` line); every phase runs
 even after another failed, and a failure ends the run with exit code 1
@@ -534,6 +558,24 @@ AUG_PAIRS = 12
 AUG_EPOCHS = 2
 AUG_VAL_PAIRS = 2
 AUG_PROBE_SAMPLES = 3
+EVAL_SINTEL_SHAPE = (436, 1024)
+EVAL_SINTEL_SCENES = 2
+EVAL_SINTEL_FRAMES = 6        # per scene: 5 pairs
+EVAL_BATCH = 4
+# the KITTI 2015 sizes of the tree, two pairs each (seq order)
+EVAL_KITTI_SIZES = ((375, 1242), (370, 1224), (376, 1241), (374, 1238))
+EVAL_KITTI_BUCKET = "376x1248"
+EVAL_KITTI_INVALID = 0.3      # share of flow pixels without ground truth
+# the report's per-sample metrics against this process's recomputation
+# from make_eval_fn on the same batches (the same weights, kernels and
+# padding on the same card): EPE within 1e-3 px + 1e-4 relative, the loss
+# within 1e-4 relative (a forward of the bf16 policy in another order
+# moves them by bf16 roundings; a sample matched to another's flow misses
+# by pixels)
+EVAL_EPE_ATOL = 1e-3
+EVAL_EPE_REL = 1e-4
+EVAL_LOSS_REL = 1e-4
+
 
 # readings a phase hands to a later one, which prints them beside its own
 SHARED = {}
@@ -3185,6 +3227,470 @@ def phase_augmented_train(card):
             "validation": dict(zip(CONVEX_KERNELS, paths["validation"]))}
 
 
+def _write_sintel_tree(root):
+    """An MPI-Sintel-shaped tree: EVAL_SINTEL_SCENES scenes of
+    EVAL_SINTEL_FRAMES frames (frame_0001...) at 436x1024 in the clean
+    pass, each frame a smooth random texture shifted by (3, -2) px from
+    the last; .flo flows of that shift for every frame but the last."""
+    import cv2
+
+    from raft_meets_dicl_tpu_torch.data import io
+
+    h, w = EVAL_SINTEL_SHAPE
+    dx, dy = 3, -2
+    flow = np.broadcast_to(np.array([dx, dy], np.float32), (h, w, 2))
+    rng = np.random.default_rng(5)
+    for s in range(EVAL_SINTEL_SCENES):
+        scene = f"scene_{s}"
+        frames = root / "training" / "clean" / scene
+        flows = root / "training" / "flow" / scene
+        frames.mkdir(parents=True)
+        flows.mkdir(parents=True)
+        base = cv2.resize(rng.integers(0, 256, (h // 4, w // 4, 3), np.uint8),
+                          (w, h), interpolation=cv2.INTER_CUBIC)
+        for k in range(EVAL_SINTEL_FRAMES):
+            i = k + 1
+            cv2.imwrite(str(frames / f"frame_{i:04d}.png"),
+                        np.roll(base, (k * dy, k * dx), axis=(0, 1)))
+            if k < EVAL_SINTEL_FRAMES - 1:
+                io.write_flow_mb(flows / f"frame_{i:04d}.flo", flow)
+
+
+def _write_kitti_tree(root):
+    """A KITTI-2015-shaped tree: one pair a sequence (``{seq}_10.png``,
+    ``{seq}_11.png`` in ``training/image_2``), two sequences at each of
+    EVAL_KITTI_SIZES, the second frame the first shifted by (3, -2) px;
+    16-bit ``flow_occ`` PNGs of that shift with EVAL_KITTI_INVALID of the
+    pixels invalid, written by the port's ``write_flow_kitti``."""
+    import cv2
+
+    from raft_meets_dicl_tpu_torch.data import io
+
+    dx, dy = 3, -2
+    images = root / "training" / "image_2"
+    flows = root / "training" / "flow_occ"
+    images.mkdir(parents=True)
+    flows.mkdir(parents=True)
+    rng = np.random.default_rng(6)
+    seq = 0
+    for h, w in EVAL_KITTI_SIZES:
+        for _ in range(2):
+            base = cv2.resize(
+                rng.integers(0, 256, (h // 4, w // 4, 3), np.uint8), (w, h),
+                interpolation=cv2.INTER_CUBIC)
+            cv2.imwrite(str(images / f"{seq:06d}_10.png"), base)
+            cv2.imwrite(str(images / f"{seq:06d}_11.png"),
+                        np.roll(base, (dy, dx), axis=(0, 1)))
+            flow = np.broadcast_to(np.array([dx, dy], np.float32), (h, w, 2))
+            valid = rng.random((h, w)) >= EVAL_KITTI_INVALID
+            io.write_flow_kitti(flows / f"{seq:06d}_10.png", flow, valid)
+            seq += 1
+
+
+def _eval_sources(tmp):
+    """The shipped Sintel (clean, training) and KITTI 2015 (training) data
+    sources and dataset specs, copied under ``tmp/cfg`` with each spec's
+    ``path`` at its tree; a one-sample subset of the Sintel source. Returns
+    the three sources' paths."""
+    from raft_meets_dicl_tpu_torch.utils import config
+
+    cfg = tmp / "cfg" / "data"
+    paths = {}
+    for name, source, spec, tree in (
+            ("sintel", "mpi-sintel-clean.train-full.yaml", "mpi-sintel.yaml",
+             tmp / "sintel"),
+            ("kitti", "kitti-2015.train.yaml", "kitti-2015.yaml",
+             tmp / "kitti")):
+        config.store(cfg / "dataset" / spec,
+                     config.load(ROOT / "cfg" / "data" / "dataset" / spec)
+                     | {"path": str(tree)})
+        config.store(cfg / source, config.load(ROOT / "cfg" / "data" / source))
+        paths[name] = cfg / source
+    paths["sample"] = cfg / "sintel-one-sample.yaml"
+    config.store(paths["sample"], {
+        "type": "subset", "size": 1, "seed": 0,
+        "source": "mpi-sintel-clean.train-full.yaml"})
+    return paths
+
+
+@contextlib.contextmanager
+def _eval_probes():
+    """Record, around the port's own functions, each ``main evaluate``
+    run's forwards (CUDA events around each call of the step, on the
+    stream it runs on; a dispatched batch's or, from the command, a
+    reversed pair's), the yielded samples' final flows
+    (finite or not, read after the run), the host ms of the per-sample
+    loss and metrics (their enqueue and the batch's fetch) and of each
+    flow-image write."""
+    from raft_meets_dicl_tpu_torch import evaluation, metrics
+    from raft_meets_dicl_tpu_torch.cmd import eval as eval_cmd
+    from raft_meets_dicl_tpu_torch.models import model as model_mod
+
+    probes = {}
+    originals = (evaluation.make_eval_fn, evaluation.evaluate,
+                 metrics.fetch, metrics.Metrics.__call__,
+                 model_mod.Loss.__call__, eval_cmd.save_flow_image)
+    (make_eval_fn, evaluate, fetch, metrics_call, loss_call,
+     save_flow_image) = originals
+
+    def reset():
+        probes.update(forwards=[], finite=[], metrics_ms=0.0,
+                      image_ms=[], samples=0, in_sweep=False)
+
+    def timed_eval_fn(*args, **kwargs):
+        step = make_eval_fn(*args, **kwargs)
+
+        def run(img1, img2):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(img1, img2)
+            end.record()
+            # the sweep's batches, or the command's reversed pairs
+            probes["forwards"].append((probes["in_sweep"], start, end))
+            return out
+        return run
+
+    def observed(*args, **kwargs):
+        samples = evaluate(*args, **kwargs)
+        while True:
+            probes["in_sweep"] = True
+            try:
+                sample = next(samples)
+            except StopIteration:
+                return
+            finally:
+                probes["in_sweep"] = False
+            probes["finite"].append(torch.isfinite(sample.final).all())
+            probes["samples"] += 1
+            yield sample
+
+    def timed(fn, key):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            ms = 1e3 * (time.perf_counter() - t0)
+            if key == "image_ms":
+                probes[key].append(ms)
+            else:
+                probes[key] += ms
+            return out
+        return run
+
+    (evaluation.make_eval_fn, evaluation.evaluate, metrics.fetch,
+     metrics.Metrics.__call__, model_mod.Loss.__call__,
+     eval_cmd.save_flow_image) = (
+        timed_eval_fn, observed, timed(fetch, "metrics_ms"),
+        timed(metrics_call, "metrics_ms"), timed(loss_call, "metrics_ms"),
+        timed(save_flow_image, "image_ms"))
+    probes["reset"] = reset
+    reset()
+    try:
+        yield probes
+    finally:
+        (evaluation.make_eval_fn, evaluation.evaluate, metrics.fetch,
+         metrics.Metrics.__call__, model_mod.Loss.__call__,
+         eval_cmd.save_flow_image) = originals
+
+
+def _eval_recompute(spec, source, buckets, batch):
+    """Each sample's id, EPE and loss, recomputed in this process with the
+    model of ``spec`` (on the card): the source's batches from the input
+    pipeline (the same padding, shape buckets and grouping as ``main
+    evaluate``), the forward of ``make_eval_fn``, the EPE of
+    ``metrics/functional.py`` and the loss of the model config, on each
+    sample's own slice."""
+    from raft_meets_dicl_tpu_torch import data, evaluation
+    from raft_meets_dicl_tpu_torch.metrics import functional
+    from raft_meets_dicl_tpu_torch.models.input import ShapeBuckets
+
+    model = spec.model
+    adapter = model.get_adapter()
+    step = evaluation.make_eval_fn(model)
+    buckets = ShapeBuckets.from_config(buckets)
+    loader = spec.input.apply(data.load(source), buckets=buckets).torch(
+    ).loader(batch_size=batch, num_workers=0,
+             group_by_shape=buckets is not None)
+    out = {}
+    with torch.inference_mode():
+        for img1, img2, flow, valid, meta in loader:
+            n = img1.shape[0]
+            pad = batch - n if buckets is not None else 0
+            i1, i2 = img1.cuda(), img2.cuda()
+            if pad:
+                i1 = torch.cat([i1, i1[-1:].expand(pad, *i1.shape[1:])])
+                i2 = torch.cat([i2, i2[-1:].expand(pad, *i2.shape[1:])])
+            raw, final = step(i1, i2)
+            result = adapter.wrap_result(raw, tuple(img1.shape[1:3]))
+            flow, valid = flow.cuda(), valid.cuda()
+            for b in range(n):
+                epe = functional.end_point_error(
+                    final[b:b + 1], flow[b:b + 1], valid[b:b + 1])["mean"]
+                loss = spec.loss(model, result.output(b), flow[b:b + 1],
+                                 valid[b:b + 1])
+                out[str(meta[b].sample_id)] = (epe.item(), loss.item())
+    return out
+
+
+def phase_evaluate(card):
+    """``main evaluate`` of raft/baseline (shipped bf16-policy config, 12
+    iterations) from a checkpoint of its seeded initial weights, over the
+    shipped Sintel and KITTI 2015 data specs pointed at synthetic trees:
+    Sintel-shaped (436x1024, 2 scenes of 6 frames: 10 pairs, .flo flows)
+    at batch 4 with a report and visual:flow images, then with --fwbw and
+    visual:occlusion; KITTI-shaped (8 pairs at four sizes, 16-bit
+    flow_occ PNGs with invalid pixels) at batch 4 with --buckets 376x1248,
+    then --buckets group. Each report and its JSONL hold every sample
+    once, in the loader's order, with its EPE and loss equal to this
+    process's recomputation; the pad waste is the trees' extents'; every
+    flow and metric is finite; the combine kernel launches once a
+    dispatched batch (and once a reversed pair), never backward. Then
+    each of the 12 flow formats from a one-sample run."""
+    import cv2
+
+    from raft_meets_dicl_tpu_torch import data, models
+    from raft_meets_dicl_tpu_torch import main as port_main
+    from raft_meets_dicl_tpu_torch.cmd.eval import FLOW_FORMATS
+    from raft_meets_dicl_tpu_torch.data import io
+    from raft_meets_dicl_tpu_torch.strategy import checkpoint
+    from raft_meets_dicl_tpu_torch.utils import config
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model_cfg = ROOT / "cfg" / "model" / "raft-baseline.yaml"
+
+    # batches and pad waste from the trees' extents: the model pads to
+    # multiples of 8 (Sintel 436x1024 to 440x1024; KITTI to 376x1248,
+    # 376x1224, 376x1248 and 376x1240); without buckets the last batch
+    # runs short, with them every batch is filled to EVAL_BATCH
+    def pad8(n):
+        return -(-n // 8) * 8
+
+    def batches(n):
+        return -(-n // EVAL_BATCH)
+
+    sintel_h, sintel_w = EVAL_SINTEL_SHAPE
+    sintel_pairs = EVAL_SINTEL_SCENES * (EVAL_SINTEL_FRAMES - 1)
+    sintel_waste = 1 - sintel_h * sintel_w / (pad8(sintel_h) * pad8(sintel_w))
+    kitti_real = 2 * sum(h * w for h, w in EVAL_KITTI_SIZES)
+    bucket_h, bucket_w = (int(x) for x in EVAL_KITTI_BUCKET.split("x"))
+    kitti_pairs = 2 * len(EVAL_KITTI_SIZES)
+    groups = {}
+    for h, w in EVAL_KITTI_SIZES:
+        groups[pad8(h), pad8(w)] = groups.get((pad8(h), pad8(w)), 0) + 2
+    group_batches = sum(batches(n) for n in groups.values())
+    group_total = sum(batches(n) * EVAL_BATCH * h * w
+                      for (h, w), n in groups.items())
+    runs = (
+        # name, source, extra arguments, batches, launches, pad waste
+        ("sintel", "sintel", ["-f", "flows", "--flow-format",
+                              "visual:flow"],
+         batches(sintel_pairs), batches(sintel_pairs), sintel_waste),
+        ("sintel_fwbw", "sintel", ["--fwbw", "-f", "flows", "--flow-format",
+                                   "visual:occlusion"],
+         batches(sintel_pairs), batches(sintel_pairs) + sintel_pairs,
+         sintel_waste),
+        ("kitti_buckets", "kitti", ["--buckets", EVAL_KITTI_BUCKET],
+         batches(kitti_pairs), batches(kitti_pairs),
+         1 - kitti_real / (batches(kitti_pairs) * EVAL_BATCH * bucket_h
+                           * bucket_w)),
+        ("kitti_group", "kitti", ["--buckets", "group"],
+         group_batches, group_batches, 1 - kitti_real / group_total),
+    )
+    problems, readings = [], {}
+    launches = {"evaluate": 0, "evaluate_formats": 0}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        _write_sintel_tree(tmp / "sintel")
+        _write_kitti_tree(tmp / "kitti")
+        sources = _eval_sources(tmp)
+        spec = models.load(config.load(model_cfg))
+        spec.model.init(torch.Generator().manual_seed(0), "cpu")
+        weights = {k: v.clone() for k, v in
+                   spec.model.module.state_dict().items()}
+        ckpt = tmp / "raft-baseline-init.ckpt"
+        checkpoint.Checkpoint(
+            model=spec.id, iteration=checkpoint.Iteration(0, None, 0),
+            metrics=None,
+            state=checkpoint.State(weights, {}, {}, [], []),
+            metadata={"source": "seeded init"}).save(ckpt)
+        # the checkpoint's weights on the card, for the recomputation
+        reference = models.load(config.load(model_cfg))
+        reference.model.init(torch.Generator().manual_seed(0), "cuda")
+        reference.model.module.load_state_dict(weights)
+        setup_s = time.perf_counter() - t0
+
+        def evaluate(source, *extra):
+            torch.cuda.reset_peak_memory_stats()
+            probes["reset"]()
+            _zero_counts()
+            t0 = time.perf_counter()
+            report = port_main.main([
+                "evaluate", "-d", str(source), "-m", str(model_cfg),
+                "-c", str(ckpt), "-b", str(EVAL_BATCH), *extra])
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            samples_per_sec = report["stats"].samples_per_sec()
+            counts = _counts()
+            forwards = [(sweep, a.elapsed_time(b))
+                        for sweep, a, b in probes["forwards"]]
+            finite = bool(torch.stack(probes["finite"]).all()) \
+                if probes["finite"] else None
+            return report, counts, dict(
+                wall_s=wall_s, samples_per_sec=samples_per_sec,
+                forwards=forwards, finite=finite,
+                samples_seen=probes["samples"],
+                metrics_ms=probes["metrics_ms"],
+                image_ms=list(probes["image_ms"]),
+                max_memory_allocated=torch.cuda.max_memory_allocated())
+
+        with _eval_probes() as probes:
+            for name, src, extra, batches, expected, waste in runs:
+                out = tmp / name
+                extra = [x if x != "flows" else str(out / "flows")
+                         for x in extra]
+                report, counts, r = evaluate(
+                    sources[src], "-o", str(out / "report.json"), *extra)
+                stats = report["stats"]
+                fwd = counts["convex_combine_8x"]
+                launches["evaluate"] += fwd
+                if (fwd, counts["convex_combine_8x_bwd"]) != (expected, 0):
+                    problems.append(
+                        f"{name}: combine launches {fwd} forward, "
+                        f"{counts['convex_combine_8x_bwd']} backward, "
+                        f"expected {expected}, 0")
+                if any(v for k, v in counts.items()
+                       if not k.startswith("convex")):
+                    problems.append(f"{name}: other kernels {counts}")
+                if stats.batches != batches:
+                    problems.append(f"{name}: {stats.batches} batches, "
+                                    f"expected {batches}")
+                if not math.isclose(stats.pad_waste_ratio(), waste,
+                                    abs_tol=1e-12):
+                    problems.append(
+                        f"{name}: pad waste {stats.pad_waste_ratio()}, "
+                        f"the extents give {waste}")
+                if r["finite"] is not True:
+                    problems.append(f"{name}: a final flow is not finite")
+
+                # ids once each in loader order, EPE and loss as
+                # recomputed here; the JSONL equal to the report
+                bucket_arg = (extra[extra.index("--buckets") + 1]
+                              if "--buckets" in extra else None)
+                expected_metrics = _eval_recompute(
+                    reference, sources[src], bucket_arg, EVAL_BATCH)
+                stored = config.load(out / "report.json")
+                jsonl = [json.loads(x) for x in
+                         (out / "report.samples.jsonl").read_text()
+                         .splitlines()]
+                ids = [s["id"] for s in stored["samples"]]
+                if ids != list(expected_metrics):
+                    problems.append(f"{name}: report ids {ids}, loader "
+                                    f"order {list(expected_metrics)}")
+                if jsonl != stored["samples"]:
+                    problems.append(f"{name}: the JSONL differs from the "
+                                    "report")
+                epe_diff, loss_rel = [], []
+                for s in stored["samples"]:
+                    m = s["metrics"]
+                    if not all(math.isfinite(v) for v in m.values()):
+                        problems.append(f"{name}: {s['id']} metrics {m}")
+                    epe, loss = expected_metrics.get(s["id"], (math.nan,) * 2)
+                    epe_diff.append(abs(m["EndPointError/mean"] - epe))
+                    loss_rel.append(abs(m["Loss"] - loss) / abs(loss))
+                    if not (epe_diff[-1] <= EVAL_EPE_ATOL
+                            + EVAL_EPE_REL * abs(epe)
+                            and loss_rel[-1] <= EVAL_LOSS_REL):
+                        problems.append(
+                            f"{name}: {s['id']} EPE {m['EndPointError/mean']}"
+                            f" loss {m['Loss']}, recomputed {epe}, {loss}")
+                if "--fwbw" in extra and not all(
+                        "fwbw" in s for s in stored["samples"]):
+                    problems.append(f"{name}: samples without fwbw products")
+                images = sorted((out / "flows").rglob("*.png")) \
+                    if "-f" in extra else []
+                if "-f" in extra and len(images) != stats.samples:
+                    problems.append(f"{name}: {len(images)} flow images for "
+                                    f"{stats.samples} samples")
+
+                batch_fwd = [ms for sweep, ms in r["forwards"] if sweep]
+                readings[name] = dict(
+                    samples=stats.samples, batches=stats.batches,
+                    buckets=stats.buckets,
+                    samples_per_sec=r["samples_per_sec"],
+                    wall_s=round(r["wall_s"], 3),
+                    dispatch_ms_per_batch=1e3 * stats.phases["dispatch"]
+                    / stats.batches,
+                    drain_ms_per_batch=1e3 * stats.phases["drain"]
+                    / stats.batches,
+                    forward_device_ms=batch_fwd,
+                    reversed_forward_device_ms=[
+                        ms for sweep, ms in r["forwards"] if not sweep],
+                    metrics_host_ms_per_sample=r["metrics_ms"]
+                    / stats.samples,
+                    image_write_ms_per_sample=(
+                        statistics.mean(r["image_ms"]) if r["image_ms"]
+                        else None),
+                    pad_waste_ratio=stats.pad_waste_ratio(),
+                    pad_waste_expected=waste,
+                    max_epe_diff=max(epe_diff),
+                    max_loss_rel_diff=max(loss_rel),
+                    summary=stored["summary"]["mean"],
+                    launches=fwd,
+                    max_memory_allocated=r["max_memory_allocated"])
+
+            # every flow format once, from a one-sample run
+            formats = {}
+            for fmt in FLOW_FORMATS:
+                out = tmp / "formats" / fmt.replace(":", "_")
+                extra = ["-f", str(out)] + (["--fwbw"] if fmt in (
+                    "visual:occlusion", "visual:confidence") else [])
+                if fmt not in ("visual:epe", "visual:bp-fl",
+                               "visual:flow:gt"):
+                    extra.append("--flow-only")
+                _, counts, r = evaluate(sources["sample"], "--flow-format",
+                                        fmt, *extra)
+                fwd = counts["convex_combine_8x"]
+                launches["evaluate_formats"] += fwd
+                files = sorted(p for p in out.rglob("*") if p.is_file())
+                decoded = []
+                for p in files:
+                    if p.suffix == ".flo":
+                        x = io.read_flow_mb(p)
+                    elif fmt == "flow:kitti":
+                        x, _ = io.read_flow_kitti(p)
+                    else:
+                        x = cv2.imread(str(p), cv2.IMREAD_UNCHANGED)
+                    decoded.append(None if x is None else x.shape[:2])
+                # the intermediates are written uncropped, as in JAX
+                want, shape = 1, EVAL_SINTEL_SHAPE
+                if fmt == "visual:intermediate:flow":
+                    want = reference.model.arguments["iterations"]
+                    shape = (pad8(sintel_h), pad8(sintel_w))
+                if len(files) != want or set(decoded) != {shape}:
+                    problems.append(f"format {fmt}: files {len(files)}, "
+                                    f"decoded shapes {set(decoded)}")
+                if fwd != 1 + ("--fwbw" in extra):
+                    problems.append(f"format {fmt}: {fwd} combine launches")
+                formats[fmt] = dict(files=len(files),
+                                    bytes=sum(p.stat().st_size
+                                              for p in files),
+                                    image_write_ms=r["image_ms"],
+                                    launches=fwd)
+
+    emit(phase="evaluate", model="raft/baseline (bf16 policy, 12 "
+         "iterations, seeded init)", batch=EVAL_BATCH,
+         sintel_tree=[EVAL_SINTEL_SCENES, EVAL_SINTEL_FRAMES,
+                      *EVAL_SINTEL_SHAPE],
+         kitti_sizes=EVAL_KITTI_SIZES, setup_s=round(setup_s, 3),
+         card=card, formats=formats, **readings)
+    if problems:
+        raise AssertionError("evaluate phase: " + "; ".join(problems))
+    return {path: {"convex_combine_8x": n} for path, n in launches.items()}
+
+
 def kernels_line(results):
     """The nine kernels with their checks, times and launches.
     ``launches`` is the count of the main path of the slice that ported
@@ -3216,6 +3722,7 @@ def kernels_line(results):
            for path, counts in results["phase_lifecycle"].items()},
         **{f"augmented_{path}": counts
            for path, counts in results["phase_augmented_train"].items()},
+        **results["phase_evaluate"],
     }
 
     def launches(name):
@@ -3468,7 +3975,7 @@ def main():
               phase_ctf_train, phase_wcp_kernels, phase_fs_model,
               phase_fs_serve, phase_fs_train_step, phase_fs_train,
               phase_fs_train_all_levels, phase_lookup_kernels, phase_quant,
-              phase_lifecycle, phase_augmented_train)
+              phase_lifecycle, phase_augmented_train, phase_evaluate)
     for phase in phases:
         run(phase)
     if failed:

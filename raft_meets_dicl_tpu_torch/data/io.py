@@ -49,6 +49,21 @@ def read_flow_kitti(file):
     return flow, raw[:, :, 2].astype(bool)
 
 
+def write_flow_kitti(file, uv, valid=None):
+    """Write flow as KITTI-format 16-bit PNG: ``64 * uv + 2^15`` in the
+    first two channels, ``valid`` (all ones by default) in the third."""
+    file = Path(file)
+    if not file.parent.exists():
+        raise FileNotFoundError(f"Directory '{file.parent}' does not exist")
+
+    encoded = 64.0 * np.asarray(uv) + 2.0**15
+    if valid is None:
+        valid = np.ones(encoded.shape[:2])
+
+    data = np.dstack((encoded, valid)).astype(np.uint16)
+    cv2.imwrite(str(file), data[:, :, ::-1])
+
+
 def read_flow_mb(file):
     """Read Middlebury ``.flo`` flow; returns (H, W, 2) float32."""
     data = Path(file).read_bytes()

@@ -14,7 +14,7 @@
   only place checkpoints are born during training, as in JAX.
 
 Not ported yet, and refused by name: inspector hooks (intermediates and
-gradient hooks; ROADMAP slice 2 item 5), the forwards-backwards occlusion
+gradient hooks; ROADMAP slice 2 item 7), the forwards-backwards occlusion
 and confidence images (with ``video/``, slice 7), validation shape
 buckets (an environment config, slice 7 ops plane).
 """
@@ -392,7 +392,7 @@ class InspectorSpec:
         if cfg.get("hooks"):
             raise NotImplementedError(
                 "inspector hooks are not ported yet (ROADMAP slice 2 item "
-                "5)")
+                "7)")
         return cls(
             [MetricsGroup.from_config(m) for m in cfg.get("metrics", [])],
             ImagesSpec.from_config(cfg.get("images")),

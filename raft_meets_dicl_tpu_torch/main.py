@@ -1,11 +1,15 @@
 """CLI argument parsing and dispatch for the PyTorch/CUDA port.
 
-Counterpart of ``raft_meets_dicl_tpu/main.py``; ``train``, ``serve`` and
-``checkpoint`` are ported.
+Counterpart of ``raft_meets_dicl_tpu/main.py``; ``train``, ``evaluate``,
+``serve`` and ``checkpoint`` are ported.
 
     python -m raft_meets_dicl_tpu_torch.main train -d strategy.yaml \
         -m model.yaml [-i inspect.yaml] -o runs [--limit-steps N] \
         [--checkpoint FILE | --resume FILE|auto] [--device cpu]
+    python -m raft_meets_dicl_tpu_torch.main evaluate -d data.yaml \
+        -m model.yaml -c chkpt.ckpt [-b N] [-o report.json] \
+        [-f DIR --flow-format FORMAT] [--buckets group|HxW,...] \
+        [--fwbw] [--iterations N] [--device cpu]
     python -m raft_meets_dicl_tpu_torch.main serve -c serve.yaml \
         [--checkpoint FILE] [--device cpu]
     python -m raft_meets_dicl_tpu_torch.main checkpoint info FILE|DIR \
@@ -13,8 +17,9 @@ Counterpart of ``raft_meets_dicl_tpu/main.py``; ``train``, ``serve`` and
     python -m raft_meets_dicl_tpu_torch.main checkpoint trim DIR \
         [--compare EXPRS] [--keep-latest N] [--keep-best N]
 
-``train`` and ``serve`` run on ``cuda`` unless ``--device cpu`` is given,
-and fail without CUDA rather than falling back to the CPU.
+``train``, ``evaluate`` and ``serve`` run on ``cuda`` unless ``--device
+cpu`` is given, and fail without CUDA rather than falling back to the
+CPU.
 
 ``serve.yaml`` holds a ``serve:`` section with ``model``, ``buckets`` and
 optionally ``checkpoint``, ``batch-size``, ``max-wait-ms``,
@@ -69,6 +74,87 @@ def build_parser():
                        help="comment to add to config file")
     train.add_argument("--limit-steps", type=int, dest="steps",
                        help="limit to a fixed number of steps")
+
+    eval_ = subp.add_parser("evaluate", aliases=["e", "eval"],
+                            formatter_class=fmtcls, help="evaluate model")
+    eval_.add_argument("-d", "--data", required=True,
+                       help="evaluation dataset")
+    eval_.add_argument("-m", "--model", required=True,
+                       help="the model to use")
+    eval_.add_argument("-c", "--checkpoint", required=True,
+                       help="the checkpoint to load (the port's or the "
+                            "JAX package's)")
+    eval_.add_argument("-b", "--batch-size", type=int, default=1,
+                       help="batch-size to use for evaluation")
+    eval_.add_argument("--iterations", type=int,
+                       help="recurrence iteration override for the "
+                            "model's update loop (also: RMD_ITERATIONS) "
+                            "[default: model config]")
+    eval_.add_argument("-x", "--metrics",
+                       help="specification of metrics to use for "
+                            "evaluation [default: cfg/eval/default.yaml]")
+    eval_.add_argument("-o", "--output",
+                       help="write detailed output to this file (json or "
+                            "yaml)")
+    eval_.add_argument("--incremental", metavar="PATH",
+                       help="append per-sample metrics to this JSONL as the "
+                            "sweep runs, so a crash keeps partial results "
+                            "[default: <output>.samples.jsonl when -o is "
+                            "set]")
+    eval_.add_argument("--no-incremental", action="store_true",
+                       help="disable the incremental per-sample JSONL")
+    eval_.add_argument("-f", "--flow",
+                       help="compute and write flow images to specified "
+                            "directory")
+    from .cmd.eval import FLOW_FORMATS
+
+    eval_.add_argument("--flow-format", default="visual:flow",
+                       choices=FLOW_FORMATS, metavar="FORMAT",
+                       help="output format for flow images "
+                            "[default: %(default)s]")
+    eval_.add_argument("--flow-mrm", type=float,
+                       help="maximum range of motion for visual flow image "
+                            "output")
+    eval_.add_argument("--flow-gamma", type=float,
+                       help="gamma for visual:flow image output")
+    eval_.add_argument("--flow-transform",
+                       help="transform for visual:flow:dark image output")
+    eval_.add_argument("--flow-only", action="store_true",
+                       help="only compute flow images, do not evaluate "
+                            "metrics")
+    eval_.add_argument("--fwbw", action="store_true",
+                       help="also run the reversed pair per sample and "
+                            "derive forwards-backwards consistency "
+                            "products (occlusion masks + confidence; "
+                            "enables the visual:occlusion and "
+                            "visual:confidence flow formats)")
+    eval_.add_argument("--epe-cmap", default="gray",
+                       help="colormap for end-point-error visualization "
+                            "(gray and viridis built in, others need "
+                            "matplotlib)")
+    eval_.add_argument("--epe-max", type=float, default=None,
+                       help="maximum end point error for visualization")
+    eval_.add_argument("--device", default="cuda",
+                       help="torch device: cuda, cuda:N or cpu "
+                            "[default: cuda; fails without CUDA]")
+    eval_.add_argument("--device-ids",
+                       help="one device index of --device's platform "
+                            "(more than one: not ported yet)")
+    eval_.add_argument("--buckets", metavar="SPEC",
+                       help="shape buckets for mixed-resolution datasets: "
+                            "'group' (batch same-shape samples) or a "
+                            "comma-separated HxW list, e.g. "
+                            "'384x1280,448x1024' (quantize + batch). "
+                            "Also: RMD_EVAL_BUCKETS")
+    # accepted so that JAX command lines parse; refused by name
+    eval_.add_argument("--wire-format", choices=["f32", "bf16", "u8"],
+                       help="not ported yet (ROADMAP slice 3)")
+    eval_.add_argument("--precompile", action="store_true",
+                       help="not ported yet (ROADMAP slice 7)")
+    eval_.add_argument("--compile-cache", metavar="DIR",
+                       help="not ported yet (ROADMAP slice 7)")
+    eval_.add_argument("--telemetry", metavar="PATH",
+                       help="not ported yet (ROADMAP slice 7)")
 
     serve = subp.add_parser("serve", formatter_class=fmtcls,
                             help="serve flow inference (continuous "
@@ -141,9 +227,10 @@ def main(argv=None):
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
-    command = {"t": "train"}.get(args.command, args.command)
-    return {"train": cmd.train, "serve": cmd.serve,
-            "checkpoint": cmd.checkpoint}[command](args)
+    command = {"t": "train", "e": "evaluate", "eval": "evaluate"}.get(
+        args.command, args.command)
+    return {"train": cmd.train, "evaluate": cmd.evaluate,
+            "serve": cmd.serve, "checkpoint": cmd.checkpoint}[command](args)
 
 
 if __name__ == "__main__":

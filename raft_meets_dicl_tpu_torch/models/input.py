@@ -9,6 +9,9 @@ the epoch order and within-batch shuffle come from the loader's own numpy
 generator, exactly as in the JAX ``Loader``, and a ``DataLoader`` decodes
 the batches in worker processes and hands them over as CPU tensors
 (pinned when asked, for a ``non_blocking`` copy to the card).
+With shape buckets (``InputSpec.apply(source, buckets)``) and
+``group_by_shape`` the loader batches mixed resolutions as the JAX one
+does: full same-shape batches first, the remainders at the end.
 """
 
 import copy
@@ -389,10 +392,13 @@ class InputSpec:
         self.range = range
         self.padding = padding
 
-    def apply(self, source):
+    def apply(self, source, buckets=None):
         """Wrap a collection in this input contract (the JAX
-        ``InputSpec.apply`` with host-side normalization and no buckets)."""
-        return Input(source, self.clip, self.range, self.padding)
+        ``InputSpec.apply`` with host-side normalization). ``buckets`` (a
+        ShapeBuckets) quantizes each sample's padded size up to a canonical
+        bucket for mixed-resolution batching."""
+        return Input(source, self.clip, self.range, self.padding,
+                     buckets=buckets)
 
     def get_config(self):
         return {
@@ -403,14 +409,19 @@ class InputSpec:
 
 
 class Input:
-    """Applies clip + range scaling + padding over a Collection."""
+    """Applies clip + range scaling + padding, then the shape buckets' pad,
+    over a Collection. The buckets must be multiples of the padding's
+    modulo (``ShapeBuckets.check_compatible``)."""
 
     def __init__(self, source, clip=(0.0, 1.0), range=(-1.0, 1.0),
-                 padding=None):
+                 padding=None, buckets=None):
         self.source = source
         self.clip = clip
         self.range = range
         self.padding = padding
+        if buckets is not None:
+            buckets.check_compatible(padding)
+        self.buckets = buckets
 
     def __getitem__(self, index):
         img1, img2, flow, valid, meta = self.source[index]
@@ -423,23 +434,28 @@ class Input:
         if self.padding is not None:
             img1, img2, flow, valid, meta = self.padding(img1, img2, flow, valid, meta)
 
+        if self.buckets is not None:
+            img1, img2, flow, valid, meta = self.buckets(img1, img2, flow, valid, meta)
+
         return img1, img2, flow, valid, meta
 
     def __len__(self):
         return len(self.source)
 
-    def torch(self):
-        return TorchAdapter(self)
+    def torch(self, flow=True):
+        return TorchAdapter(self, flow)
 
 
 class TorchAdapter:
     """Validates samples and normalizes them to NHWC float32 numpy (the JAX
     ``JaxAdapter``). Non-finite images or flow, or empty valid masks, mark
     the whole sample batch invalid via ``meta.valid``; the trainer skips
-    those batches with a warning."""
+    those batches with a warning. With ``flow=False`` no flow or valid
+    mask is returned (both None)."""
 
-    def __init__(self, source):
+    def __init__(self, source, flow=True):
         self.source = source
+        self.flow = flow
         self.log = logging.getLogger("data:torch-adapter")
 
     def __getitem__(self, index):
@@ -448,6 +464,9 @@ class TorchAdapter:
 
         img1 = np.ascontiguousarray(img1, dtype=np.float32)
         img2 = np.ascontiguousarray(img2, dtype=np.float32)
+
+        if not self.flow:
+            return img1, img2, None, None, meta
 
         assert flow is not None and valid is not None
         self._validate_flow(flow, valid, meta)
@@ -491,29 +510,46 @@ class TorchAdapter:
         return len(self.source)
 
     def loader(self, batch_size=1, shuffle=False, num_workers=4,
-               drop_last=False, seed=None, pin_memory=False):
+               drop_last=False, seed=None, pin_memory=False,
+               group_by_shape=False):
         # no **kwargs catch-all: unknown loader arguments (typos in stage
         # configs) must fail loudly instead of being silently dropped
         return Loader(self, batch_size, shuffle, num_workers, drop_last,
-                      seed, pin_memory)
+                      seed, pin_memory, group_by_shape)
+
+
+def _check_shapes(samples):
+    base = samples[0][0].shape[1:]
+    for s in samples[1:]:
+        if s[0].shape[1:] != base:
+            def describe(smp, shape):
+                meta = smp[4]
+                ds = meta[0].dataset_id if meta and hasattr(
+                    meta[0], "dataset_id") else "<unknown dataset>"
+                return f"{shape[0]}x{shape[1]} (dataset '{ds}')"
+            raise ValueError(
+                "cannot batch samples of mixed shapes: "
+                f"{describe(samples[0], base)} vs "
+                f"{describe(s, s[0].shape[1:])} — use shape buckets "
+                "(--buckets / RMD_EVAL_BUCKETS / loader "
+                "group_by_shape=True) or batch size 1 for "
+                "mixed-resolution datasets")
 
 
 def collate(samples, shuffle=False, rng=None):
     """Concatenate pre-batched samples into one global batch (numpy),
-    optionally shuffled within the batch (the JAX ``collate``)."""
-    base = samples[0][0].shape[1:]
-    for s in samples[1:]:
-        if s[0].shape[1:] != base:
-            raise ValueError(
-                "cannot batch samples of mixed shapes: "
-                f"{base[0]}x{base[1]} vs {s[0].shape[1]}x{s[0].shape[2]}; "
-                "use batch size 1 for mixed-resolution datasets")
+    optionally shuffled within the batch (the JAX ``collate``); flow and
+    valid stay None for flow-less samples."""
+    _check_shapes(samples)
 
     img1 = np.concatenate([s[0] for s in samples], axis=0)
     img2 = np.concatenate([s[1] for s in samples], axis=0)
 
-    flow = np.concatenate([s[2] for s in samples], axis=0)
-    valid = np.concatenate([s[3] for s in samples], axis=0)
+    if samples[0][2] is not None:
+        flow = np.concatenate([s[2] for s in samples], axis=0)
+        valid = np.concatenate([s[3] for s in samples], axis=0)
+    else:
+        flow, valid = None, None
 
     meta = [m for s in samples for m in s[4]]
 
@@ -521,10 +557,15 @@ def collate(samples, shuffle=False, rng=None):
         rng = rng if rng is not None else np.random
         perm = rng.permutation(img1.shape[0])
         img1, img2 = img1[perm], img2[perm]
-        flow, valid = flow[perm], valid[perm]
+        if flow is not None:
+            flow, valid = flow[perm], valid[perm]
         meta = [meta[i] for i in perm]
 
     return img1, img2, flow, valid, meta
+
+
+def _from_numpy(x):
+    return None if x is None else torch.from_numpy(x)
 
 
 def _collate_tensors(samples):
@@ -532,7 +573,19 @@ def _collate_tensors(samples):
     index order (the caller shuffles the batch within itself)."""
     img1, img2, flow, valid, meta = collate(samples)
     return (torch.from_numpy(img1), torch.from_numpy(img2),
-            torch.from_numpy(flow), torch.from_numpy(valid), meta)
+            _from_numpy(flow), _from_numpy(valid), meta)
+
+
+def _cat_tensors(samples):
+    """Concatenate tensor samples of one shape, in order."""
+    _check_shapes(samples)
+    img1 = torch.cat([s[0] for s in samples])
+    img2 = torch.cat([s[1] for s in samples])
+    flow = valid = None
+    if samples[0][2] is not None:
+        flow = torch.cat([s[2] for s in samples])
+        valid = torch.cat([s[3] for s in samples])
+    return img1, img2, flow, valid, [m for s in samples for m in s[4]]
 
 
 def _in_background(items, depth):
@@ -600,16 +653,28 @@ class Loader:
     With ``pin_memory`` the batches are in pinned memory: copied there
     after the gather, or by ``torch.utils.data``'s pinning thread when
     nothing is shuffled.
+
+    ``group_by_shape`` reorders the epoch into full same-shape batches, as
+    the JAX ``Loader._iter_grouped`` does: samples are fetched in epoch
+    order, one index at a time (the ``DataLoader``'s sampler hands the
+    workers single indices), buffered per (H, W) in the caller's process
+    and a batch is emitted whenever one shape's buffer fills; partial
+    buffers flush at the end, first-seen shape first (dropped under
+    ``drop_last``). Within a batch the epoch order, and with it the
+    ``meta`` order, is kept; a shuffled batch is then permuted as above.
+    With workers the grouping runs in a thread of the caller's process.
     """
 
     def __init__(self, source, batch_size=1, shuffle=False, num_workers=4,
-                 drop_last=False, seed=None, pin_memory=False):
+                 drop_last=False, seed=None, pin_memory=False,
+                 group_by_shape=False):
         self.source = source
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.num_workers = num_workers
         self.drop_last = drop_last
         self.pin_memory = pin_memory
+        self.group_by_shape = bool(group_by_shape)
         if seed is None:
             seed = int(np.random.randint(0, 2**31 - 1))
         self.rng = np.random.default_rng(seed)
@@ -634,15 +699,18 @@ class Loader:
 
     def _shuffle(self, batch):
         """The JAX ``collate``'s within-batch permutation of a collated
-        batch (none for a single pair), then pinned if ``pin_memory``."""
+        batch (none for a single pair or without ``shuffle``), then pinned
+        if ``pin_memory``."""
         img1, img2, flow, valid, meta = batch
         perm = None
-        if img1.shape[0] > 1:
+        if self.shuffle and img1.shape[0] > 1:
             perm = self.rng.permutation(img1.shape[0])
             index = torch.from_numpy(perm)
             meta = [meta[i] for i in perm]
 
         def gather(t):
+            if t is None:
+                return None
             if perm is not None:
                 t = torch.index_select(t, 0, index)
             # pinned by a copy: ``pin_memory()`` reuses the caching host
@@ -652,7 +720,44 @@ class Loader:
 
         return gather(img1), gather(img2), gather(flow), gather(valid), meta
 
+    def _grouped(self, samples):
+        """The JAX ``_iter_grouped`` over fetched tensor samples."""
+        groups, seen = {}, []
+        for sample in samples:
+            key = tuple(sample[0].shape[1:3])
+            if key not in groups:
+                groups[key] = []
+                seen.append(key)
+            buf = groups[key]
+            buf.append(sample)
+            if sum(s[0].shape[0] for s in buf) >= self.batch_size:
+                groups[key] = []
+                yield self._shuffle(_cat_tensors(buf))
+
+        if not self.drop_last:
+            for key in seen:
+                if groups[key]:
+                    yield self._shuffle(_cat_tensors(groups[key]))
+
+    def _iter_grouped(self):
+        n = len(self.source)
+        order = self.rng.permutation(n) if self.shuffle else np.arange(n)
+        # one index a batch: the workers decode single samples, grouped
+        # here; they start here, in the caller's thread
+        samples = iter(torch.utils.data.DataLoader(
+            self.source, batch_sampler=[[int(i)] for i in order],
+            num_workers=self.num_workers, collate_fn=_collate_tensors))
+        if self.num_workers <= 0:
+            yield from self._grouped(samples)
+        else:
+            yield from _in_background(self._grouped(samples),
+                                      depth=2 * self.num_workers)
+
     def __iter__(self):
+        if self.group_by_shape:
+            yield from self._iter_grouped()
+            return
+
         loader = iter(torch.utils.data.DataLoader(
             self.source, batch_sampler=self._batches(),
             num_workers=self.num_workers, collate_fn=_collate_tensors,

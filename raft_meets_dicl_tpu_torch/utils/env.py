@@ -8,6 +8,10 @@
 - ``RMD_ASYNC_CHECKPOINT``: a switch, on unless set to ``0``: checkpoints
   are encoded and written on a background thread (0 = the whole save on
   the training loop's thread).
+- ``RMD_ITERATIONS``: the recurrence iteration override of ``main
+  evaluate`` (0 or unset = the model config's; ``--iterations`` wins).
+- ``RMD_EVAL_BUCKETS``: ``main evaluate``'s shape buckets, ``group`` or
+  an ``HxW`` list (``--buckets`` wins).
 """
 
 import os
@@ -19,6 +23,18 @@ def get_float(name, default=FS_VOLUME_GIB_DEFAULT):
     """The knob's value as a float, ``default`` when unset or empty."""
     value = os.environ.get(name)
     return default if value in (None, "") else float(value)
+
+
+def get_int(name, default=0):
+    """The knob's value as an int, ``default`` when unset or empty."""
+    value = os.environ.get(name)
+    return default if value in (None, "") else int(value)
+
+
+def get_str(name):
+    """The knob's raw string, None when unset or empty."""
+    value = os.environ.get(name)
+    return None if value in (None, "") else value
 
 
 def get_bool(name):
