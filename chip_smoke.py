@@ -169,8 +169,8 @@ the card and fails (non-zero exit, no result line) on any fault:
    FlyingThings3D-shaped tree (4 batches of 6 an epoch); its six
    augmentations, crop 720x400, batch 6, AdamW, one-cycle and clip as
    shipped; 2 epochs, 8 steps, its two validation entries on a 2-pair
-   436x1024 tree. Run at the loader's default 4 workers and again at
-   ``min(os.cpu_count(), 16)`` through the stage's ``loader`` key: every
+   436x1024 tree. Run at the loader's default 4 workers and again at 16
+   through ``-e cfg/env/w16.yaml`` (the environment's ``loader``): every
    loss finite, the combine kernels launched once forward and once
    backward a step and once a validation batch; in the default run the
    pairs the steps receive in epochs 0 and 1 equal, bit for bit, the
@@ -204,7 +204,27 @@ the card and fails (non-zero exit, no result line) on any fault:
    dispatch and drain ms per batch (``EvalRunStats.phases``), the
    forward's device ms per batch (CUDA events), host ms per sample for
    the loss and metrics and for the image write, the pad waste and the
-   peak device memory.
+   peak device memory;
+24. wire-env: ``main serve -c cfg/serve/example.yaml`` as it ships (u8
+   wire, buckets 384x1280 and 448x1024, batch 4, 32 requests at 50/s):
+   every request served, no non-finite flow, the combine launched once a
+   batch and once a warm-up bucket, request 0 within 1e-3 px of the
+   in-process f32-path forward of its host-decoded images at the
+   dispatched batch's shape; the same with ``--wire-format f32``
+   (host->device bytes a batch, dispatch span, p50/p99 and pairs/s of
+   both printed). ``main train`` (batch 6 at 400x720, 6 steps from fixed
+   seeds) on the f32 wire, the bf16 wire of ``-e cfg/env/wire-bf16.yaml``
+   and ``--wire-format u8``, over a tree whose frame 0 is a truncated PNG:
+   33, 16.125 and 10.125 bytes a pixel cross each step, the first loss of
+   bf16 and u8 within 2e-2 and 5e-2 of f32's (JAX's own tolerances), one
+   substitution logged and counted a run, the combine kernels once
+   forward and once backward a step. ``main evaluate --wire-format u8``
+   over phase 23's Sintel tree: each sample's EPE and loss equal to this
+   process's recomputation through the same wire, dispatch ms a batch
+   printed beside phase 23's f32 sweep. Phase 22's s1-things run from
+   fixed seeds, then rerun twice from its own ``config.json`` with ``-c
+   ... --reproduce -e cfg/env/deterministic.yaml``, side by side, each in
+   a process of its own: their losses equal bit for bit.
 
 Each phase prints one JSON line (and a ``timing`` line); every phase runs
 even after another failed, and a failure ends the run with exit code 1
@@ -3004,12 +3024,11 @@ def _write_things_tree(root, pairs):
             cv2.imwrite(str(d / f"{i:04d}.png"), frame)
 
 
-def _s1_things(tmp, num_workers=None):
+def _s1_things(tmp):
     """The shipped s1-things.yaml, its two FlyingThings sources and the
     shipped FlyingThings spec, copied under ``tmp/cfg`` with the spec's
     ``path`` at ``tmp/things``, 2 epochs and the validation entries on the
-    tree at ``tmp/val``; ``num_workers`` goes to the stage's ``loader``
-    key. Returns the strategy's path."""
+    tree at ``tmp/val``. Returns the strategy's path."""
     from raft_meets_dicl_tpu_torch.utils import config
 
     cfg = tmp / "cfg"
@@ -3028,8 +3047,6 @@ def _s1_things(tmp, num_workers=None):
     for entry in stage["validation"]:
         entry["source"] = {"type": "dataset",
                            "spec": str(tmp / "val" / "dataset.yaml")}
-    if num_workers is not None:
-        stage["loader"] = {"num_workers": num_workers}
     path = cfg / "strategy" / "baseline" / "raft" / S1_THINGS.name
     config.store(path, strategy)
     return path
@@ -3126,7 +3143,7 @@ def phase_augmented_train(card):
     flows) on a 540x960 tree, its six augmentations, crop 720x400, batch 6,
     AdamW, one-cycle and clip as shipped; 2 epochs of 4 steps, validated
     each epoch on a 436x1024 tree. Run at the loader's default 4 workers
-    and again at min(cpu count, 16) through the stage's ``loader`` key.
+    and again at 16 through ``-e cfg/env/w16.yaml``.
     The combine kernels launch once forward and once backward a step and
     once a validation batch; the pairs the steps receive in epochs 0 and 1
     (default run) are the stage's pipeline's at ``set_epoch(0)`` and
@@ -3155,12 +3172,13 @@ def phase_augmented_train(card):
         _write_training_tree(tmp / "val", LIFE_VAL_SHAPE, AUG_VAL_PAIRS, "")
         write_s = time.perf_counter() - t0
 
-        for name, workers in (("default_workers", None),
-                              ("wide_workers", min(os.cpu_count(), 16))):
-            strategy = _s1_things(tmp, workers)
+        strategy = _s1_things(tmp)
+        for name, extra in (("default_workers", ()),
+                            ("wide_workers",
+                             ("-e", str(ENV_DIR / "w16.yaml")))):
             with _recorded_batches() as batches, _life_probes() as probes:
                 tctx, wall_s, peak, counts = _run_train(
-                    strategy, model_cfg, tmp / name, steps)
+                    strategy, model_cfg, tmp / name, steps, *extra)
             run, p = _run_readings(tctx, batch, steps, wall_s)
             problems += [f"{name}: {x}" for x in p]
 
@@ -3185,7 +3203,7 @@ def phase_augmented_train(card):
                 problems.append(f"{name}: batches of shapes {shapes}")
 
             extra = {}
-            if workers is None:
+            if name == "default_workers":
                 # the epoch reaches the forked workers
                 p, order = _epoch_problems(tctx, batches)
                 problems += [f"{name}: {x}" for x in p]
@@ -3393,11 +3411,11 @@ def _eval_probes():
          eval_cmd.save_flow_image) = originals
 
 
-def _eval_recompute(spec, source, buckets, batch):
+def _eval_recompute(spec, source, buckets, batch, wire=None):
     """Each sample's id, EPE and loss, recomputed in this process with the
     model of ``spec`` (on the card): the source's batches from the input
-    pipeline (the same padding, shape buckets and grouping as ``main
-    evaluate``), the forward of ``make_eval_fn``, the EPE of
+    pipeline (the same padding, shape buckets, grouping and wire format as
+    ``main evaluate``), the forward of ``make_eval_fn``, the EPE of
     ``metrics/functional.py`` and the loss of the model config, on each
     sample's own slice."""
     from raft_meets_dicl_tpu_torch import data, evaluation
@@ -3406,11 +3424,12 @@ def _eval_recompute(spec, source, buckets, batch):
 
     model = spec.model
     adapter = model.get_adapter()
-    step = evaluation.make_eval_fn(model)
+    step = evaluation.make_eval_fn(model, wire=wire)
     buckets = ShapeBuckets.from_config(buckets)
-    loader = spec.input.apply(data.load(source), buckets=buckets).torch(
-    ).loader(batch_size=batch, num_workers=0,
-             group_by_shape=buckets is not None)
+    loader = spec.input.apply(data.load(source), buckets=buckets,
+                              normalize=wire is None).torch(
+        wire=wire).loader(batch_size=batch, num_workers=0,
+                          group_by_shape=buckets is not None)
     out = {}
     with torch.inference_mode():
         for img1, img2, flow, valid, meta in loader:
@@ -3680,6 +3699,10 @@ def phase_evaluate(card):
                                     image_write_ms=r["image_ms"],
                                     launches=fwd)
 
+    if "sintel" in readings:
+        # phase 24 prints it beside its u8 sweep
+        SHARED["evaluate_sintel_dispatch_ms_per_batch"] = \
+            readings["sintel"]["dispatch_ms_per_batch"]
     emit(phase="evaluate", model="raft/baseline (bf16 policy, 12 "
          "iterations, seeded init)", batch=EVAL_BATCH,
          sintel_tree=[EVAL_SINTEL_SCENES, EVAL_SINTEL_FRAMES,
@@ -3689,6 +3712,346 @@ def phase_evaluate(card):
     if problems:
         raise AssertionError("evaluate phase: " + "; ".join(problems))
     return {path: {"convex_combine_8x": n} for path, n in launches.items()}
+
+
+# -- phase 24: environments and wire formats ------------------------------------
+
+SERVE_EXAMPLE = ROOT / "cfg" / "serve" / "example.yaml"
+SEEDS = ROOT / "cfg" / "seeds" / "fixed.yaml"
+ENV_DIR = ROOT / "cfg" / "env"
+# the wire train runs: one epoch of WIRE_STEPS batches at TRAIN_BATCH x
+# TRAIN_SHAPE, frame 0 of the tree a truncated PNG (pair 0 healed once a
+# run)
+WIRE_STEPS = 6
+# the first step's loss of a wire run against the f32 wire run's, from the
+# same seeds: JAX's own tolerances (tests/test_wire.py)
+WIRE_LOSS_REL = {"bf16": 2e-2, "u8": 5e-2}
+# bytes per pixel that cross a train step's host->device copy: two RGB
+# images, 2-channel flow and the valid mask
+WIRE_BYTES_PER_PX = {"f32": 33.0, "bf16": 16.125, "u8": 10.125}
+# served request 0 (u8 wire, decoded on the card) against the in-process
+# forward of its host-decoded images on the f32 path, at the dispatched
+# batch's shape: the same kernels, and the two decodes do the same float32
+# operations, so the bound is phase 21's, which the run should read far
+# below
+WIRE_SERVE_MAX_ABS_PX = LIFE_SERVE_MAX_ABS_PX
+# the deterministic reruns: steps of the s1-things run, from its config
+DET_STEPS = 2
+HEAL_LOG = "substituting a neighbor"
+
+
+def _serve_example(*extra):
+    """``main serve -c cfg/serve/example.yaml`` as shipped; returns the
+    report, the combine kernel's launches and the host→device bytes of
+    each dispatched batch by bucket, read from the arrays the session
+    copies (``ServeSession.run``'s inputs)."""
+    from raft_meets_dicl_tpu_torch import main as port_main
+    from raft_meets_dicl_tpu_torch.serve.session import ServeSession
+
+    original, copied = ServeSession.run, {}
+
+    def run(self, img1, img2):
+        h, w = img1.shape[1:3]
+        copied.setdefault(f"{h}x{w}", set()).add(img1.nbytes + img2.nbytes)
+        return original(self, img1, img2)
+
+    ServeSession.run = run
+    try:
+        _zero_counts()
+        report = port_main.main(["serve", "-c", str(SERVE_EXAMPLE), *extra])
+        torch.cuda.synchronize()
+    finally:
+        ServeSession.run = original
+    return report, _counts(), copied
+
+
+def _serve_problems(name, report, counts, requests):
+    problems = []
+    if report["completed"] != requests or report["requests"] != requests:
+        problems.append(f"{name}: completed {report['completed']}/"
+                        f"{report['requests']}")
+    if report["errors"] or report["rejected"]:
+        problems.append(f"{name}: errors {report['errors']}, rejected "
+                        f"{report['rejected']}")
+    if report["nonfinite"]:
+        problems.append(f"{name}: {report['nonfinite']} non-finite flows")
+    expected = _expect(convex_combine_8x=report["batches"]
+                       + len(report["warmup"]))
+    if counts != expected:
+        problems.append(f"{name}: launches {counts}, expected {expected}")
+    return problems
+
+
+def _wire_serve(card):
+    """The shipped serve config as it ships (u8 wire), then the same with
+    ``--wire-format f32``; request 0 of the u8 run against the in-process
+    forward of its host-decoded images on the f32 path."""
+    from raft_meets_dicl_tpu_torch import evaluation, models
+    from raft_meets_dicl_tpu_torch.models.input import ShapeBuckets
+    from raft_meets_dicl_tpu_torch.models.wire import WireFormat
+    from raft_meets_dicl_tpu_torch.serve import loadgen
+    from raft_meets_dicl_tpu_torch.utils import config
+
+    shipped = config.load(SERVE_EXAMPLE)["serve"]
+    # in the session's order: the load generator's first shape is the
+    # first of these
+    buckets = ShapeBuckets.from_config(shipped["buckets"]).sizes
+    batch, requests = shipped["batch-size"], shipped["requests"]
+    problems, readings, paths = [], {}, {}
+    for wire, extra in (("u8", ()), ("f32", ("--wire-format", "f32"))):
+        report, counts, copied = _serve_example(*extra)
+        name = f"serve_{wire}"
+        problems += _serve_problems(name, report, counts, requests)
+        itemsize = {"u8": 1, "f32": 4}[wire]
+        expected = {f"{h}x{w}": {2 * batch * h * w * 3 * itemsize}
+                    for h, w in buckets}
+        if not copied or any(v != expected.get(k) for k, v in copied.items()):
+            problems.append(f"{name}: host→device bytes a batch {copied}, "
+                            f"expected {expected}")
+        readings[name] = dict(
+            wire=report["wire"], batches=report["batches"],
+            batches_by_bucket=report["batches_by_bucket"],
+            launches=counts["convex_combine_8x"],
+            h2d_bytes_per_batch={k: sorted(v) for k, v in copied.items()},
+            dispatch_ms=report["spans_ms"].get("dispatch"),
+            p50_ms=report["p50_ms"], p99_ms=report["p99_ms"],
+            pairs_per_sec=report["pairs_per_sec"], warmup=report["warmup"])
+        paths[f"wire_{name}"] = {"convex_combine_8x":
+                                 counts["convex_combine_8x"]}
+        if wire == "u8":
+            served = report["results"][0].flow
+
+    spec = models.load(config.load(SERVE_EXAMPLE.parent / shipped["model"]))
+    spec.model.init(torch.Generator().manual_seed(0), "cuda")
+    wire = WireFormat.from_config("u8", clip=spec.input.clip,
+                                  range=spec.input.range)
+    raw = loadgen.synthetic_pair(buckets[0], np.random.default_rng(0))
+    pair = [torch.from_numpy(np.repeat(wire.decode_images_host(
+        wire.encode_image(x))[None], batch, 0)).cuda() for x in raw]
+    _, flow = evaluation.make_eval_fn(spec.model)(*pair)
+    diff = float(np.abs(flow[0].cpu().numpy() - served).max())
+    if not diff <= WIRE_SERVE_MAX_ABS_PX:
+        problems.append(f"served request 0 (u8) is {diff} px from the "
+                        "in-process f32-path forward of its host-decoded "
+                        f"images (bound {WIRE_SERVE_MAX_ABS_PX} px)")
+    readings["request0_max_abs_diff_px"] = diff
+    readings["request0_bound_px"] = WIRE_SERVE_MAX_ABS_PX
+    return readings, problems, paths
+
+
+def _heal_lines(tctx):
+    return sum(HEAL_LOG in line for line in
+               (tctx.path / "main.log").read_text().splitlines())
+
+
+def _wire_train(tmp):
+    """``main train`` at TRAIN_BATCH x TRAIN_SHAPE from fixed seeds on a
+    tree whose frame 0 is a truncated PNG: the f32 wire, the bf16 wire of
+    ``-e cfg/env/wire-bf16.yaml`` and ``--wire-format u8``."""
+    data = tmp / "wire-data"
+    _write_training_tree(
+        data, TRAIN_SHAPE, WIRE_STEPS * TRAIN_BATCH,
+        _strategy("s1-things", TRAIN_BATCH, "true", 0.000125, gamma=0.8))
+    frame = data / "frames" / "frame_0000.png"
+    frame.write_bytes(frame.read_bytes()[:1000])
+    model_cfg = ROOT / "cfg" / "model" / "raft-baseline.yaml"
+    pixels = TRAIN_BATCH * TRAIN_SHAPE[0] * TRAIN_SHAPE[1]
+
+    problems, readings, paths, losses = [], {}, {}, {}
+    for wire, extra in (("f32", ("--wire-format", "f32")),
+                        ("bf16", ("-e", str(ENV_DIR / "wire-bf16.yaml"))),
+                        ("u8", ("--wire-format", "u8"))):
+        tctx, wall_s, peak, counts = _run_train(
+            data / "strategy.yaml", model_cfg, tmp / f"wire-{wire}",
+            WIRE_STEPS, "-s", str(SEEDS), "--reproduce", *extra)
+        run, p = _run_readings(tctx, TRAIN_BATCH, WIRE_STEPS, wall_s)
+        problems += [f"train {wire}: {x}" for x in p]
+        if tctx.wire is None or tctx.wire.images != wire:
+            problems.append(f"train {wire}: ran the wire {tctx.wire}")
+        nbytes = [h["wire_bytes"] for h in tctx.history]
+        if nbytes != [WIRE_BYTES_PER_PX[wire] * pixels] * WIRE_STEPS:
+            problems.append(f"train {wire}: {nbytes} bytes a batch, "
+                            f"expected {WIRE_BYTES_PER_PX[wire] * pixels}")
+        expected = _expect(convex_combine_8x=WIRE_STEPS,
+                           convex_combine_8x_bwd=WIRE_STEPS)
+        if counts != expected:
+            problems.append(f"train {wire}: launches {counts}")
+        healed = _heal_lines(tctx)
+        if healed != 1 or tctx.data.bad_samples != 1:
+            problems.append(f"train {wire}: {healed} substitutions logged, "
+                            f"{tctx.data.bad_samples} counted, expected 1")
+        losses[wire] = run["losses"][0]
+        readings[f"train_{wire}"] = dict(
+            wire=tctx.wire.describe(), bytes_per_batch=nbytes[0],
+            bytes_per_px=nbytes[0] / pixels, losses=run["losses"],
+            step_ms=run["step_ms"], median_step_ms=run["median_step_ms"],
+            substitutions_logged=healed, max_memory_allocated=peak)
+        paths[f"wire_train_{wire}"] = {k: v for k, v in counts.items() if v}
+    for wire, rel in WIRE_LOSS_REL.items():
+        diff = abs(losses[wire] - losses["f32"]) / abs(losses["f32"])
+        readings[f"train_{wire}"]["first_loss_rel_to_f32"] = diff
+        if not diff <= rel:
+            problems.append(f"train {wire}: first loss {losses[wire]} is "
+                            f"{diff} from the f32 wire's {losses['f32']} "
+                            f"(bound {rel})")
+    readings["phase8_median_step_ms"] = SHARED.get("train_median_step_ms")
+    return readings, problems, paths
+
+
+def _wire_evaluate(tmp):
+    """``main evaluate --wire-format u8`` over the shipped Sintel source at
+    phase 23's tree: each sample's EPE and loss against this process's
+    recomputation through the same wire."""
+    from raft_meets_dicl_tpu_torch import models
+    from raft_meets_dicl_tpu_torch import main as port_main
+    from raft_meets_dicl_tpu_torch.models.wire import WireFormat
+    from raft_meets_dicl_tpu_torch.strategy import checkpoint
+    from raft_meets_dicl_tpu_torch.utils import config
+
+    model_cfg = ROOT / "cfg" / "model" / "raft-baseline.yaml"
+    _write_sintel_tree(tmp / "sintel")
+    sources = _eval_sources(tmp)
+    spec = models.load(config.load(model_cfg))
+    spec.model.init(torch.Generator().manual_seed(0), "cuda")
+    ckpt = tmp / "raft-baseline-init.ckpt"
+    checkpoint.Checkpoint(
+        model=spec.id, iteration=checkpoint.Iteration(0, None, 0),
+        metrics=None, state=checkpoint.State(
+            spec.model.module.state_dict(), {}, {}, [], []),
+        metadata={"source": "seeded init"}).save(ckpt)
+
+    _zero_counts()
+    report = port_main.main([
+        "evaluate", "-d", str(sources["sintel"]), "-m", str(model_cfg),
+        "-c", str(ckpt), "-b", str(EVAL_BATCH), "--wire-format", "u8",
+        "-o", str(tmp / "eval-u8" / "report.json")])
+    torch.cuda.synchronize()
+    counts = _counts()
+    stats = report["stats"]
+    wire = WireFormat.from_config("u8", clip=spec.input.clip,
+                                  range=spec.input.range)
+    expected = _eval_recompute(spec, sources["sintel"], None, EVAL_BATCH,
+                               wire=wire)
+    problems, epe_diff = [], []
+    for s in report["samples"]:
+        epe, loss = expected.get(s["id"], (math.nan,) * 2)
+        m = s["metrics"]
+        epe_diff.append(abs(m["EndPointError/mean"] - epe))
+        if not (epe_diff[-1] <= EVAL_EPE_ATOL + EVAL_EPE_REL * abs(epe)
+                and abs(m["Loss"] - loss) <= EVAL_LOSS_REL * abs(loss)):
+            problems.append(f"evaluate u8: {s['id']} EPE "
+                            f"{m['EndPointError/mean']} loss {m['Loss']}, "
+                            f"recomputed {epe}, {loss}")
+    pairs = EVAL_SINTEL_SCENES * (EVAL_SINTEL_FRAMES - 1)
+    if len(report["samples"]) != pairs or len(expected) != pairs:
+        problems.append(f"evaluate u8: {len(report['samples'])} samples")
+    batches = -(-pairs // EVAL_BATCH)
+    if counts != _expect(convex_combine_8x=batches):
+        problems.append(f"evaluate u8: launches {counts}")
+    readings = dict(
+        samples=stats.samples, batches=stats.batches,
+        samples_per_sec=stats.samples_per_sec(),
+        dispatch_ms_per_batch=1e3 * stats.phases["dispatch"] / stats.batches,
+        drain_ms_per_batch=1e3 * stats.phases["drain"] / stats.batches,
+        f32_dispatch_ms_per_batch_phase23=SHARED.get(
+            "evaluate_sintel_dispatch_ms_per_batch"),
+        max_epe_diff=max(epe_diff), summary=report["summary"]["mean"])
+    return readings, problems, {"wire_evaluate_u8": {
+        "convex_combine_8x": counts["convex_combine_8x"]}}
+
+
+_RERUN = (
+    "import json, sys\n"
+    "from raft_meets_dicl_tpu_torch import main\n"
+    "tctx = main.main(sys.argv[1:])\n"
+    "print(json.dumps([h['loss'] for h in tctx.history]))\n")
+
+
+def _rerun(config_json, out, env):
+    """``main train -c config.json --reproduce -e env`` in a process of
+    its own (the deterministic switches are process-wide), started now;
+    its last line of output is the losses."""
+    return subprocess.Popen(
+        [sys.executable, "-c", _RERUN, "train", "-c", str(config_json),
+         "--reproduce", "-e", str(env), "-o", str(out), "--limit-steps",
+         str(DET_STEPS)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _wire_rerun(tmp):
+    """A run of the shipped s1-things data graph (phase 22's) from fixed
+    seeds, then two reruns from its own config.json with ``-c ...
+    --reproduce -e cfg/env/deterministic.yaml``, side by side in
+    processes of their own: their losses equal bit for bit."""
+    model_cfg = ROOT / "cfg" / "model" / "raft-baseline.yaml"
+    _write_things_tree(tmp / "things", AUG_PAIRS)
+    _write_training_tree(tmp / "val", LIFE_VAL_SHAPE, AUG_VAL_PAIRS, "")
+    strategy = _s1_things(tmp)
+    tctx, wall_s, _, _ = _run_train(strategy, model_cfg, tmp / "first",
+                                    DET_STEPS, "-s", str(SEEDS),
+                                    "--reproduce")
+    config_json = tctx.path / "config.json"
+    environment = json.loads(config_json.read_text())["environment"]
+    first = [h["loss"] for h in tctx.history]
+
+    t0 = time.perf_counter()
+    procs = [_rerun(config_json, tmp / f"det-{k}",
+                    ENV_DIR / "deterministic.yaml") for k in (0, 1)]
+    outs = [p.communicate(timeout=600) for p in procs]
+    rerun_s = time.perf_counter() - t0
+    problems, losses = [], []
+    for p, (out, err) in zip(procs, outs):
+        if p.returncode != 0:
+            problems.append(f"deterministic rerun exited {p.returncode}: "
+                            f"{err[-2000:]}")
+            losses.append(None)
+            continue
+        losses.append(json.loads(out.strip().splitlines()[-1]))
+        if "deterministic algorithms: on" not in err:
+            problems.append("a rerun did not turn deterministic "
+                            "algorithms on")
+    if not problems and (losses[0] != losses[1]
+                         or len(losses[0]) != DET_STEPS):
+        problems.append(f"deterministic reruns' losses differ: {losses}")
+    return dict(first_losses=first, rerun_losses=losses,
+                reruns_equal=losses[0] == losses[1] and losses[0] is not None,
+                equal_to_first=losses[0] == first,
+                environment=environment, rerun_wall_s=round(rerun_s, 3),
+                first_wall_s=round(wall_s, 3)), problems
+
+
+def phase_wire_env(card):
+    """Environments and wire formats on the card (shipped bf16-policy
+    raft/baseline, 12 iterations): ``main serve -c cfg/serve/example.yaml``
+    as it ships (u8 wire) and with ``--wire-format f32``; ``main train``
+    on the f32, bf16 (``-e cfg/env/wire-bf16.yaml``) and u8 wires over a
+    tree with one truncated PNG, healed once a run; ``main evaluate
+    --wire-format u8`` over phase 23's Sintel tree; phase 22's run rerun
+    twice from its config.json under ``-e cfg/env/deterministic.yaml``."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    problems, readings, paths = [], {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for name, part in (("serve", lambda: _wire_serve(card)),
+                           ("train", lambda: _wire_train(tmp)),
+                           ("evaluate", lambda: _wire_evaluate(tmp))):
+            t0 = time.perf_counter()
+            r, p, launches = part()
+            readings[name] = r | {"seconds": round(time.perf_counter() - t0,
+                                                   3)}
+            problems += p
+            paths.update(launches)
+        t0 = time.perf_counter()
+        readings["rerun"], p = _wire_rerun(tmp)
+        readings["rerun"]["seconds"] = round(time.perf_counter() - t0, 3)
+        problems += p
+    emit(phase="wire-env", model="raft/baseline (bf16 policy, 12 "
+         "iterations)", serve_config=str(SERVE_EXAMPLE.relative_to(ROOT)),
+         train_shape=[TRAIN_BATCH, *TRAIN_SHAPE], card=card, **readings)
+    if problems:
+        raise AssertionError("wire-env phase: " + "; ".join(problems))
+    return paths
 
 
 def kernels_line(results):
@@ -3723,6 +4086,7 @@ def kernels_line(results):
         **{f"augmented_{path}": counts
            for path, counts in results["phase_augmented_train"].items()},
         **results["phase_evaluate"],
+        **results["phase_wire_env"],
     }
 
     def launches(name):
@@ -3975,7 +4339,8 @@ def main():
               phase_ctf_train, phase_wcp_kernels, phase_fs_model,
               phase_fs_serve, phase_fs_train_step, phase_fs_train,
               phase_fs_train_all_levels, phase_lookup_kernels, phase_quant,
-              phase_lifecycle, phase_augmented_train, phase_evaluate)
+              phase_lifecycle, phase_augmented_train, phase_evaluate,
+              phase_wire_env)
     for phase in phases:
         run(phase)
     if failed:

@@ -10,9 +10,13 @@ flow image's inputs are copied to the host only for the format that
 reads them. Runs on ``cuda`` unless ``--device cpu`` is given, and fails
 without CUDA rather than running elsewhere.
 
+``--wire-format`` (or ``RMD_WIRE_FORMAT``; the flag wins) sends the
+images to the device in a compact dtype, un-normalized, and the step
+decodes them there (``models.wire``); not with ``--fwbw``, as in JAX.
+
 Flags of parts not ported yet are accepted, so that a JAX command line
-parses, and refused by name: ``--wire-format`` (ROADMAP slice 3),
-``--precompile`` and ``--compile-cache`` (slice 7, ``compile/``),
+parses, and refused by name: ``--precompile`` and ``--compile-cache``
+(slice 7, ``compile/``),
 ``--telemetry`` (slice 7, the ops plane) and ``--device-ids`` with more
 than one id (slice 2 item 10, data parallelism).
 """
@@ -27,6 +31,7 @@ import torch
 
 from .. import data, evaluation, metrics, models, strategy, utils, visual
 from ..models.input import ShapeBuckets
+from ..models.wire import WireFormat
 from ..video.products import fw_bw_products
 
 _DEFAULT_METRICS = (Path(__file__).resolve().parents[2] / "cfg" / "eval"
@@ -46,7 +51,6 @@ _FWBW_FORMATS = ("visual:occlusion", "visual:confidence")
 _IMAGE_FORMATS = ("visual:i1", "visual:warp:backwards", "visual:occlusion")
 
 _REFUSED = (
-    ("wire_format", "--wire-format", "ROADMAP slice 3, wire formats"),
     ("precompile", "--precompile", "ROADMAP slice 7, compile/"),
     ("compile_cache", "--compile-cache", "ROADMAP slice 7, compile/"),
     ("telemetry", "--telemetry", "ROADMAP slice 7, the ops plane"),
@@ -104,6 +108,16 @@ def evaluate(args):
             f"flow format '{args.flow_format}' derives from the "
             f"forwards-backwards pass; add --fwbw")
 
+    # wire format: images cross host->device compact and un-normalized,
+    # the normalization runs in the eval step
+    wire = WireFormat.from_config(getattr(args, "wire_format", None)
+                                  or utils.env.get_str("RMD_WIRE_FORMAT"))
+    if fwbw and wire is not None:
+        # the backwards forward re-enters the step with the yielded
+        # (decoded) images, which a wire step would decode again
+        raise ValueError("--fwbw needs the plain f32 input path "
+                         "(drop --wire-format)")
+
     device = select_device(args.device, getattr(args, "device_ids", None))
 
     # model (a full training config's model section is accepted too)
@@ -115,6 +129,9 @@ def evaluate(args):
     spec = models.load(model_cfg)
     model, loss, input = spec.model, spec.loss, spec.input
     model_adapter = model.get_adapter()
+    if wire is not None:
+        wire = wire.bound(input.clip, input.range)
+        logging.info(f"input wire format: {wire.describe()}")
 
     logging.info(f"loading checkpoint, file='{args.checkpoint}'")
     chkpt = strategy.Checkpoint.load(args.checkpoint)
@@ -143,8 +160,9 @@ def evaluate(args):
         logging.info(f"shape buckets: {buckets.describe()}")
 
     dataset = data.load(args.data)
-    loader = input.apply(dataset, buckets=buckets).torch(
-        compute_metrics).loader(
+    loader = input.apply(dataset, buckets=buckets,
+                         normalize=wire is None).torch(
+        compute_metrics, wire=wire).loader(
             batch_size=args.batch_size, shuffle=False, drop_last=False,
             pin_memory=device.type == "cuda",
             group_by_shape=buckets is not None)
@@ -188,7 +206,7 @@ def evaluate(args):
     if iterations:
         logging.info(f"iteration override: {iterations}")
 
-    eval_fn = evaluation.make_eval_fn(model, model_args)
+    eval_fn = evaluation.make_eval_fn(model, model_args, wire=wire)
 
     # incremental per-sample JSONL: one line per evaluated sample, flushed
     # as it is computed, so that a crash mid-sweep keeps everything up to
@@ -273,7 +291,8 @@ def evaluate(args):
     try:
         batch = []
         for sample in evaluation.evaluate(model, loader, eval_fn=eval_fn,
-                                          pad_to=pad_to, stats=stats):
+                                          pad_to=pad_to, stats=stats,
+                                          wire=wire):
             batch.append(sample)
             if sample.end_of_batch:
                 finish(batch)

@@ -8,9 +8,12 @@ bucket), runs the built-in open-loop load
 generator against the scheduler and prints the report (p50/p99 latency,
 pairs/s, shed/error counts) as JSON.
 
-Precedence: CLI flag > config file (``serve:`` section) > default. The
-device is ``cuda`` unless ``--device cpu`` is given; without CUDA the
-command fails rather than running on the CPU.
+Precedence: CLI flag > config file (``serve:`` section) > default; the
+wire format (``--wire-format``, the config's ``wire-format`` key) then
+falls back to ``RMD_WIRE_FORMAT``, as in JAX. ``cfg/serve/example.yaml``
+serves as it ships (u8 wire). The device is ``cuda`` unless ``--device
+cpu`` is given; without CUDA the command fails rather than running on the
+CPU.
 """
 
 import json
@@ -21,16 +24,17 @@ import numpy as np
 
 from .. import models, serve as serving, utils
 from ..models.input import ShapeBuckets
+from ..models.wire import WireFormat
 
 _DEFAULTS = {"batch-size": 4, "requests": 32, "rate": 50.0,
              "max-wait-ms": serving.scheduler.DEFAULT_MAX_WAIT_MS,
              "queue-limit": serving.scheduler.DEFAULT_QUEUE_LIMIT}
 
 
-def _pick(cli, cfg, cfg_key):
+def _pick(cli, cfg, cfg_key, default=None):
     if cli is not None:
         return cli
-    return cfg.get(cfg_key, _DEFAULTS.get(cfg_key))
+    return cfg.get(cfg_key, _DEFAULTS.get(cfg_key, default))
 
 
 def _resolve(path, cfg_path):
@@ -53,7 +57,7 @@ def serve(args):
         cfg = utils.config.load(args.config)
         cfg = cfg.get("serve", cfg)
 
-    for key in ("wire-format", "ladder", "video", "quant"):
+    for key in ("ladder", "video", "quant"):
         if cfg.get(key):
             raise NotImplementedError(
                 f"serve config key '{key}' is not ported yet (ROADMAP "
@@ -81,11 +85,18 @@ def serve(args):
             "config's 'buckets' key")
     logging.info(f"shape buckets: {buckets.describe()}")
 
+    wire = WireFormat.from_config(_pick(
+        getattr(args, "wire_format", None), cfg, "wire-format",
+        utils.env.get_str("RMD_WIRE_FORMAT")))
+    if wire is not None:
+        logging.info(f"request wire format: {wire.describe()}")
+
     batch_size = int(_pick(args.batch_size, cfg, "batch-size"))
     checkpoint = getattr(args, "checkpoint", None)
     if checkpoint is None and cfg.get("checkpoint") is not None:
         checkpoint = _resolve(cfg["checkpoint"], getattr(args, "config", None))
-    session = serving.ServeSession(spec, buckets, checkpoint=checkpoint,
+    session = serving.ServeSession(spec, buckets, wire=wire,
+                                   checkpoint=checkpoint,
                                    batch_size=batch_size, device=args.device)
 
     warmup = session.warm_pool()
@@ -122,6 +133,7 @@ def serve(args):
     report["batches"] = scheduler.batches
     report["batches_by_bucket"] = dict(scheduler.batches_by_bucket)
     report["warmup"] = warmup
+    report["wire"] = wire.describe() if wire is not None else None
 
     logging.info(
         f"served {report['completed']}/{report['requests']} requests: "

@@ -5,16 +5,18 @@ single-device path).
 ``make_eval_fn(model)`` returns ``step(img1, img2) -> (raw_output,
 final_flow)`` under ``torch.inference_mode()`` on the device the model
 lives on; validation (``inspect.summary.make_val_step``), serving and
-``evaluate`` run it. ``evaluate`` yields one ``EvalSample`` per dataset
+``evaluate`` run it. With a wire format (``models.wire.WireFormat``) the
+step takes the images as they crossed the host→device copy and decodes
+them first. ``warmup_eval_fn`` runs it once per shape on zero images of
+the wire's dtype. ``evaluate`` yields one ``EvalSample`` per dataset
 sample, with one batch in flight, and ``EvalRunStats`` accounts a sweep
 (``main evaluate``, ``cmd/eval.py``).
 
 Left out of the JAX module: the compile counters (``compiles``, the
 program registry and AOT store: eager PyTorch compiles no programs), the
-telemetry ``emit`` (ROADMAP slice 7's ops plane), meshes and wire formats,
-and the warm-up, rung and video programs (``warmup_eval_fn``,
-``make_rung_fn``, ``make_warm_fn``: slice 7's ladder, video and
-``compile/``).
+telemetry ``emit`` (ROADMAP slice 7's ops plane), meshes, and the rung
+and video programs (``make_rung_fn``, ``make_warm_fn``: slice 7's ladder
+and video).
 """
 
 import contextlib
@@ -25,20 +27,41 @@ from typing import Any, Dict, Optional
 import torch
 
 
-def make_eval_fn(model, model_args=None):
+def make_eval_fn(model, model_args=None, wire=None):
     """``step(img1, img2) -> (raw_output, final_flow)`` for NHWC image
-    batches already on the model's device; ``model_args`` merge over the
-    model's config-default arguments."""
+    batches already on the model's device (in ``wire``'s dtype, decoded
+    first, when one is given); ``model_args`` merge over the model's
+    config-default arguments."""
     model_args = dict(model_args or {})
     adapter = model.get_adapter()
 
     def step(img1, img2):
         with torch.inference_mode():
+            if wire is not None:
+                img1, img2, _, _ = wire.decode(img1, img2)
             out = model.apply(img1, img2, train=False, **model_args)
             result = adapter.wrap_result(out, tuple(img1.shape[1:3]))
             return out, result.final()
 
     return step
+
+
+def warmup_eval_fn(eval_fn, shapes, batch_size, device, wire=None):
+    """One forward of ``eval_fn`` per ``(H, W)`` in ``shapes`` at
+    ``batch_size``, on zero images in the wire's image dtype (float32
+    without one), so that the kernels build and the convolution library
+    picks its algorithms before the first real batch. Returns the seconds
+    each took, by shape."""
+    dtype = wire.image_dtype() if wire is not None else torch.float32
+    seconds = {}
+    for h, w in shapes:
+        img = torch.zeros((batch_size, h, w, 3), dtype=dtype, device=device)
+        t0 = time.perf_counter()
+        eval_fn(img, img)
+        if torch.device(device).type == "cuda":
+            torch.cuda.current_stream(device).synchronize()
+        seconds[(h, w)] = time.perf_counter() - t0
+    return seconds
 
 
 @dataclass
@@ -47,8 +70,9 @@ class EvalSample:
 
     Unlike the JAX sample, whose arrays are already on the host, every
     tensor here stays on the model's device: ``img1``/``img2`` (H, W, 3)
-    normalized, ``target`` (H, W, 2) and ``valid`` (H, W) (None without
-    flow), ``final`` the finest full-resolution flow (H, W, 2), ``output``
+    normalized (decoded from the wire on the device, with the host
+    decode's arithmetic, when there is one), ``target`` (H, W, 2) and
+    ``valid`` (H, W) (None without flow), ``final`` the finest full-resolution flow (H, W, 2), ``output``
     the model's raw output for this sample (batch 1; what the loss
     consumes). The caller moves to the host what it uses: raft's 12
     full-resolution intermediate flows of a b2 436x1024 batch alone are
@@ -147,13 +171,17 @@ def _tensors(tree):
 
 
 def evaluate(model, data, model_args=None, eval_fn=None, pad_to=None,
-             stats=None):
+             stats=None, wire=None):
     """Yield an ``EvalSample`` per dataset sample.
 
     ``data`` iterates batches ``(img1, img2, flow, valid, meta)`` of NHWC
     CPU tensors (a ``models.input.Loader``, pinned for a CUDA model); the
     model's module is already on its device. Pass a prebuilt ``eval_fn``
-    (from ``make_eval_fn``) to share it with the caller.
+    (from ``make_eval_fn``) to share it with the caller. With ``wire``,
+    ``data`` yields wire-format images (an adapter built with the same
+    WireFormat): they upload compact, the step decodes them, and the
+    yielded ``img1``/``img2`` are decoded to the normalized float32
+    contract.
 
     One batch in flight: batch n+1 is uploaded (``non_blocking``) and its
     forward enqueued before batch n's samples are yielded, and on a CUDA
@@ -171,8 +199,8 @@ def evaluate(model, data, model_args=None, eval_fn=None, pad_to=None,
     batch counts, the dispatch/drain phases and the pad-waste ratio.
     """
     adapter = model.get_adapter()
-    step = eval_fn if eval_fn is not None else make_eval_fn(model,
-                                                            model_args)
+    step = eval_fn if eval_fn is not None else make_eval_fn(
+        model, model_args, wire=wire)
     device = next(model.module.parameters()).device
     cuda = device.type == "cuda"
     if cuda:
@@ -217,6 +245,8 @@ def evaluate(model, data, model_args=None, eval_fn=None, pad_to=None,
             for t in [img1, img2, flow, valid, final, *_tensors(out)]:
                 if t is not None:
                     t.record_stream(caller)
+        if wire is not None:
+            img1, img2 = wire.decode_image(img1), wire.decode_image(img2)
         result = adapter.wrap_result(out, tuple(img1.shape[1:3]))
         if stats is not None:
             stats.add_phase("drain", time.perf_counter() - t0)

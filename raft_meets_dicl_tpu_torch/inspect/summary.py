@@ -339,7 +339,8 @@ class StrategyValidation(Validation):
         input = ctx.input.apply(val.source).torch()
         data = input.loader(batch_size=val.batch_size, shuffle=False,
                             drop_last=False,
-                            pin_memory=ctx.device.type == "cuda")
+                            pin_memory=ctx.device.type == "cuda",
+                            **getattr(ctx, "loader_args", {}))
 
         ctx_m = metrics.MetricContext(
             lr=ctx.last_lr, params=dict(ctx.model.module.named_parameters()))
@@ -456,6 +457,11 @@ class SummaryInspector(Inspector):
         """The trainer returns the gradients from its step iff a metric
         asks for them."""
         return any(g.wants_gradients for g in self.metrics)
+
+    def wants_host_images(self, step):
+        """Pixel values are read only on image-dump steps: the wire-format
+        trainer decodes the images for those alone."""
+        return self.images is not None and step % self.images.frequency == 0
 
     def _set_fmtargs(self, ctx, stage, epoch=None):
         self.writer.set_fmtargs(dict(

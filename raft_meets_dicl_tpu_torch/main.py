@@ -4,8 +4,11 @@ Counterpart of ``raft_meets_dicl_tpu/main.py``; ``train``, ``evaluate``,
 ``serve`` and ``checkpoint`` are ported.
 
     python -m raft_meets_dicl_tpu_torch.main train -d strategy.yaml \
-        -m model.yaml [-i inspect.yaml] -o runs [--limit-steps N] \
+        -m model.yaml [-i inspect.yaml] [-e env.yaml] -o runs \
+        [--limit-steps N] [--wire-format f32|bf16|u8] [--loader-procs N] \
         [--checkpoint FILE | --resume FILE|auto] [--device cpu]
+    python -m raft_meets_dicl_tpu_torch.main train -c run/config.json \
+        --reproduce [-e env.yaml] -o runs [--device cpu]
     python -m raft_meets_dicl_tpu_torch.main evaluate -d data.yaml \
         -m model.yaml -c chkpt.ckpt [-b N] [-o report.json] \
         [-f DIR --flow-format FORMAT] [--buckets group|HxW,...] \
@@ -22,9 +25,10 @@ cpu`` is given, and fail without CUDA rather than falling back to the
 CPU.
 
 ``serve.yaml`` holds a ``serve:`` section with ``model``, ``buckets`` and
-optionally ``checkpoint``, ``batch-size``, ``max-wait-ms``,
-``queue-limit``, ``requests`` and ``rate``; the keys of parts not ported
-yet (``wire-format``, ``ladder``, ``video``, ``quant``) are refused.
+optionally ``checkpoint``, ``wire-format``, ``batch-size``,
+``max-wait-ms``, ``queue-limit``, ``requests`` and ``rate``
+(``cfg/serve/example.yaml`` serves as it ships); the keys of parts not
+ported yet (``ladder``, ``video``, ``quant``) are refused.
 """
 
 import argparse
@@ -44,12 +48,20 @@ def build_parser():
 
     train = subp.add_parser("train", aliases=["t"], formatter_class=fmtcls,
                             help="train model")
+    train.add_argument("-c", "--config",
+                       help="full training configuration (a run's "
+                            "config.json, or cfg/full); the part flags "
+                            "override its parts")
     train.add_argument("-d", "--data", help="training strategy and data")
     train.add_argument("-m", "--model", help="specification of the model")
     train.add_argument("-i", "--inspect",
                        help="specification of metrics, validation and "
                             "checkpoints [default: cfg/inspect/default.yaml]")
     train.add_argument("-s", "--seeds", help="seed config for initializing RNGs")
+    train.add_argument("-e", "--env", "--environment", dest="env",
+                       help="environment config: loader arguments, wire "
+                            "format, deterministic switch "
+                            "[default: cfg/env/default.yaml]")
     train.add_argument("-o", "--output", default="runs",
                        help="base output directory [default: %(default)s]")
     train.add_argument("--device", default="cuda",
@@ -74,6 +86,16 @@ def build_parser():
                        help="comment to add to config file")
     train.add_argument("--limit-steps", type=int, dest="steps",
                        help="limit to a fixed number of steps")
+    train.add_argument("--wire-format", choices=["f32", "bf16", "u8"],
+                       help="host->device batch wire format: compact image "
+                            "dtype + on-device normalization (also: "
+                            "RMD_WIRE_FORMAT or the env config's 'wire' "
+                            "section) [default: host-normalized f32]")
+    train.add_argument("--loader-procs", type=int, metavar="N",
+                       help="decode the input pipeline in N worker "
+                            "processes (also: RMD_LOADER_PROCS; the env "
+                            "config's 'loader.procs') [default: the "
+                            "loader's num_workers]")
 
     eval_ = subp.add_parser("evaluate", aliases=["e", "eval"],
                             formatter_class=fmtcls, help="evaluate model")
@@ -146,9 +168,12 @@ def build_parser():
                             "comma-separated HxW list, e.g. "
                             "'384x1280,448x1024' (quantize + batch). "
                             "Also: RMD_EVAL_BUCKETS")
-    # accepted so that JAX command lines parse; refused by name
     eval_.add_argument("--wire-format", choices=["f32", "bf16", "u8"],
-                       help="not ported yet (ROADMAP slice 3)")
+                       help="host->device batch wire format (compact image "
+                            "dtype, on-device normalization; also: "
+                            "RMD_WIRE_FORMAT) [default: host-normalized "
+                            "f32]")
+    # accepted so that JAX command lines parse; refused by name
     eval_.add_argument("--precompile", action="store_true",
                        help="not ported yet (ROADMAP slice 7)")
     eval_.add_argument("--compile-cache", metavar="DIR",
@@ -185,6 +210,12 @@ def build_parser():
     serve.add_argument("--rate", type=float,
                        help="built-in open-loop client: submissions/s "
                             "[default: 50]")
+    serve.add_argument("--wire-format", choices=["f32", "bf16", "u8"],
+                       help="request wire format: compact image dtype "
+                            "decoded in the inference step (also: the "
+                            "config's 'wire-format' key, then "
+                            "RMD_WIRE_FORMAT) [default: host-normalized "
+                            "f32]")
     serve.add_argument("--device", default="cuda",
                        help="torch device: cuda, cuda:N or cpu "
                             "[default: cuda; fails without CUDA]")

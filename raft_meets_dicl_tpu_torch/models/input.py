@@ -8,7 +8,10 @@ NHWC float32) and the batching ``Loader``, built on ``torch.utils.data``:
 the epoch order and within-batch shuffle come from the loader's own numpy
 generator, exactly as in the JAX ``Loader``, and a ``DataLoader`` decodes
 the batches in worker processes and hands them over as CPU tensors
-(pinned when asked, for a ``non_blocking`` copy to the card).
+(pinned when asked, for a ``non_blocking`` copy to the card). With a wire
+format (``models.wire``) the adapter encodes the un-normalized images in
+the workers, and the loader's fetch heals: a sample that fails to decode
+is retried, then a neighbour takes its place, within a budget.
 With shape buckets (``InputSpec.apply(source, buckets)``) and
 ``group_by_shape`` the loader batches mixed resolutions as the JAX one
 does: full same-shape batches first, the remainders at the end.
@@ -16,6 +19,7 @@ does: full same-shape batches first, the remainders at the end.
 
 import copy
 import logging
+import multiprocessing
 import queue
 import threading
 from dataclasses import replace
@@ -23,6 +27,9 @@ from dataclasses import replace
 import numpy as np
 import torch
 import torch.utils.data
+
+from ..utils import env
+from . import wire as wire_
 
 # clip bound for non-finite flow values (the JAX ``FLOW_INF``)
 FLOW_INF = 1e10
@@ -392,13 +399,14 @@ class InputSpec:
         self.range = range
         self.padding = padding
 
-    def apply(self, source, buckets=None):
+    def apply(self, source, buckets=None, normalize=True):
         """Wrap a collection in this input contract (the JAX
-        ``InputSpec.apply`` with host-side normalization). ``buckets`` (a
-        ShapeBuckets) quantizes each sample's padded size up to a canonical
-        bucket for mixed-resolution batching."""
+        ``InputSpec.apply``). ``buckets`` (a ShapeBuckets) quantizes each
+        sample's padded size up to a canonical bucket for mixed-resolution
+        batching; ``normalize=False`` keeps raw pixel values for a wire
+        format (padding constants mapped into raw space)."""
         return Input(source, self.clip, self.range, self.padding,
-                     buckets=buckets)
+                     normalize=normalize, buckets=buckets)
 
     def get_config(self):
         return {
@@ -409,27 +417,34 @@ class InputSpec:
 
 
 class Input:
-    """Applies clip + range scaling + padding, then the shape buckets' pad,
-    over a Collection. The buckets must be multiples of the padding's
-    modulo (``ShapeBuckets.check_compatible``)."""
+    """Applies clip + range scaling (unless ``normalize=False``, for a wire
+    format that normalizes on the device) + padding, then the shape
+    buckets' pad, over a Collection. The buckets must be multiples of the
+    padding's modulo (``ShapeBuckets.check_compatible``)."""
 
     def __init__(self, source, clip=(0.0, 1.0), range=(-1.0, 1.0),
-                 padding=None, buckets=None):
+                 padding=None, normalize=True, buckets=None):
         self.source = source
         self.clip = clip
         self.range = range
+        self.normalize = normalize
         self.padding = padding
+        if padding is not None and not normalize:
+            self.padding = padding.raw_variant(clip, range)
         if buckets is not None:
             buckets.check_compatible(padding)
+            if not normalize:
+                buckets = buckets.raw_variant(clip, range)
         self.buckets = buckets
 
     def __getitem__(self, index):
         img1, img2, flow, valid, meta = self.source[index]
 
-        lo, hi = self.clip
-        rmin, rmax = self.range
-        img1 = (rmax - rmin) * np.clip(img1, lo, hi) + rmin
-        img2 = (rmax - rmin) * np.clip(img2, lo, hi) + rmin
+        if self.normalize:
+            lo, hi = self.clip
+            rmin, rmax = self.range
+            img1 = (rmax - rmin) * np.clip(img1, lo, hi) + rmin
+            img2 = (rmax - rmin) * np.clip(img2, lo, hi) + rmin
 
         if self.padding is not None:
             img1, img2, flow, valid, meta = self.padding(img1, img2, flow, valid, meta)
@@ -442,8 +457,8 @@ class Input:
     def __len__(self):
         return len(self.source)
 
-    def torch(self, flow=True):
-        return TorchAdapter(self, flow)
+    def torch(self, flow=True, wire=None, wire_targets=False):
+        return TorchAdapter(self, flow, wire=wire, wire_targets=wire_targets)
 
 
 class TorchAdapter:
@@ -451,19 +466,35 @@ class TorchAdapter:
     ``JaxAdapter``). Non-finite images or flow, or empty valid masks, mark
     the whole sample batch invalid via ``meta.valid``; the trainer skips
     those batches with a warning. With ``flow=False`` no flow or valid
-    mask is returned (both None)."""
+    mask is returned (both None).
 
-    def __init__(self, source, flow=True):
+    With ``wire`` (a ``models.wire.WireFormat`` over an un-normalized
+    ``Input``) the images are encoded to the wire dtype here, in the
+    loader's workers, so that the compact form is what crosses processes
+    and the host→device copy. Flow and valid stay exact for the host's
+    metrics, unless ``wire_targets``: training, where nothing on the host
+    reads them, has them compressed here too (f16, bit-packed), which JAX
+    does at its device put, in its prefetch thread; either way off the
+    training loop's thread.
+    """
+
+    def __init__(self, source, flow=True, wire=None, wire_targets=False):
         self.source = source
         self.flow = flow
+        self.wire = wire
+        self.wire_targets = wire is not None and wire_targets
         self.log = logging.getLogger("data:torch-adapter")
 
     def __getitem__(self, index):
         img1, img2, flow, valid, meta = self.source[index]
         self._validate_images(img1, img2, meta)
 
-        img1 = np.ascontiguousarray(img1, dtype=np.float32)
-        img2 = np.ascontiguousarray(img2, dtype=np.float32)
+        if self.wire is not None:
+            img1 = self.wire.encode_image(img1)
+            img2 = self.wire.encode_image(img2)
+        else:
+            img1 = np.ascontiguousarray(img1, dtype=np.float32)
+            img2 = np.ascontiguousarray(img2, dtype=np.float32)
 
         if not self.flow:
             return img1, img2, None, None, meta
@@ -476,6 +507,9 @@ class TorchAdapter:
 
         flow = np.ascontiguousarray(flow, dtype=np.float32)
         valid = np.ascontiguousarray(valid, dtype=bool)
+        if self.wire_targets:
+            flow = self.wire.encode_flow(flow)
+            valid = self.wire.encode_valid(valid)
 
         return img1, img2, flow, valid, meta
 
@@ -511,11 +545,13 @@ class TorchAdapter:
 
     def loader(self, batch_size=1, shuffle=False, num_workers=4,
                drop_last=False, seed=None, pin_memory=False,
-               group_by_shape=False):
+               group_by_shape=False, procs=None, retries=None,
+               bad_sample_budget=None):
         # no **kwargs catch-all: unknown loader arguments (typos in stage
         # configs) must fail loudly instead of being silently dropped
         return Loader(self, batch_size, shuffle, num_workers, drop_last,
-                      seed, pin_memory, group_by_shape)
+                      seed, pin_memory, group_by_shape, procs=procs,
+                      retries=retries, bad_sample_budget=bad_sample_budget)
 
 
 def _check_shapes(samples):
@@ -570,9 +606,10 @@ def _from_numpy(x):
 
 def _collate_tensors(samples):
     """``DataLoader`` collate, in a worker: the samples concatenated in
-    index order (the caller shuffles the batch within itself)."""
+    index order (the caller shuffles the batch within itself); wire images
+    keep their dtype (bf16 bit patterns become a bfloat16 tensor)."""
     img1, img2, flow, valid, meta = collate(samples)
-    return (torch.from_numpy(img1), torch.from_numpy(img2),
+    return (wire_.as_tensor(img1), wire_.as_tensor(img2),
             _from_numpy(flow), _from_numpy(valid), meta)
 
 
@@ -629,6 +666,30 @@ def _in_background(items, depth):
         thread.join()
 
 
+def _shut_down(loader):
+    """Stop a ``DataLoader`` iterator's workers now. After a worker's error
+    the iterator sits in a reference cycle with the traceback, and the
+    garbage collector's shutdown then waits out each worker's 5 s status
+    poll."""
+    stop = getattr(loader, "_shutdown_workers", None)
+    if stop is not None:
+        stop()
+
+
+class _Healing(torch.utils.data.Dataset):
+    """The dataset the ``DataLoader`` workers read: each index through
+    the loader's healing fetch."""
+
+    def __init__(self, loader):
+        self.loader = loader
+
+    def __getitem__(self, index):
+        return self.loader._fetch(index)
+
+    def __len__(self):
+        return len(self.loader.source)
+
+
 class Loader:
     """Batching iterator over an adapter on ``torch.utils.data``.
 
@@ -663,21 +724,94 @@ class Loader:
     ``drop_last``). Within a batch the epoch order, and with it the
     ``meta`` order, is kept; a shuffled batch is then permuted as above.
     With workers the grouping runs in a thread of the caller's process.
+
+    ``procs > 0`` sets the number of worker processes (the JAX Loader's
+    decode processes; the port's workers are processes already), ``None``
+    reads ``RMD_LOADER_PROCS`` (0 or unset: ``num_workers``).
+
+    The fetch heals as the JAX ``Loader._fetch`` does: a sample whose
+    decode raises is tried ``retries + 1`` times, then the neighbours
+    ``(i + k) % n`` for ``k < min(n, 8)`` are tried in its place. Every
+    sample given up on counts against ``bad_sample_budget`` over the
+    loader's whole life (a ``multiprocessing.Value`` made here, before the
+    workers fork, so that the count outlives each epoch's workers); going
+    over the budget raises ``RuntimeError``, and a budget of 0 re-raises
+    the sample's own error. Defaults: ``RMD_LOADER_RETRIES`` (2) and
+    ``RMD_BAD_SAMPLE_BUDGET`` (16).
     """
 
     def __init__(self, source, batch_size=1, shuffle=False, num_workers=4,
                  drop_last=False, seed=None, pin_memory=False,
-                 group_by_shape=False):
+                 group_by_shape=False, procs=None, retries=None,
+                 bad_sample_budget=None):
         self.source = source
         self.batch_size = batch_size
         self.shuffle = shuffle
-        self.num_workers = num_workers
+        if procs is None:
+            procs = env.get_int("RMD_LOADER_PROCS")
+        self.num_workers = int(procs) if int(procs) > 0 else num_workers
         self.drop_last = drop_last
         self.pin_memory = pin_memory
         self.group_by_shape = bool(group_by_shape)
         if seed is None:
             seed = int(np.random.randint(0, 2**31 - 1))
         self.rng = np.random.default_rng(seed)
+
+        if retries is None:
+            retries = env.get_int("RMD_LOADER_RETRIES",
+                                  env.LOADER_RETRIES_DEFAULT)
+        self.retries = max(0, int(retries))
+        if bad_sample_budget is None:
+            bad_sample_budget = env.get_int("RMD_BAD_SAMPLE_BUDGET",
+                                            env.BAD_SAMPLE_BUDGET_DEFAULT)
+        self.bad_sample_budget = max(0, int(bad_sample_budget))
+        self._bad = multiprocessing.Value("i", 0)
+        self._fetching = _Healing(self)
+
+    @property
+    def bad_samples(self):
+        """Samples given up on (substituted) so far, over every epoch."""
+        return self._bad.value
+
+    def _note_bad_sample(self, index, error):
+        if self.bad_sample_budget <= 0:
+            # budget 0 = healing off: the original error propagates as-is
+            raise error
+        with self._bad.get_lock():
+            self._bad.value += 1
+            bad = self._bad.value
+        logging.getLogger("data:loader").warning(
+            f"sample {index} failed to decode after {self.retries + 1} "
+            f"attempt(s) ({type(error).__name__}: {error}); substituting a "
+            f"neighbor ({bad}/{self.bad_sample_budget} bad-sample budget)")
+        if bad > self.bad_sample_budget:
+            raise RuntimeError(
+                f"bad-sample budget exceeded ({bad} > "
+                f"{self.bad_sample_budget}): the input data is "
+                "persistently failing to decode") from error
+
+    def _fetch(self, index):
+        """``source[index]`` with bounded retry, then substitution (the
+        JAX ``Loader._fetch``)."""
+        index = int(index)
+        last = None
+        for _ in range(self.retries + 1):
+            try:
+                return self.source[index]
+            except Exception as e:  # noqa: BLE001 - a sample's decode error
+                last = e
+        self._note_bad_sample(index, last)
+
+        n = len(self.source)
+        for k in range(1, min(n, 8)):
+            sub = (index + k) % n
+            try:
+                return self.source[sub]
+            except Exception as e:  # noqa: BLE001 - a sample's decode error
+                self._note_bad_sample(sub, e)
+        raise RuntimeError(
+            f"sample {index} and every substitution candidate failed to "
+            "decode") from last
 
     def __len__(self):
         n = len(self.source)
@@ -745,13 +879,16 @@ class Loader:
         # one index a batch: the workers decode single samples, grouped
         # here; they start here, in the caller's thread
         samples = iter(torch.utils.data.DataLoader(
-            self.source, batch_sampler=[[int(i)] for i in order],
+            self._fetching, batch_sampler=[[int(i)] for i in order],
             num_workers=self.num_workers, collate_fn=_collate_tensors))
-        if self.num_workers <= 0:
-            yield from self._grouped(samples)
-        else:
-            yield from _in_background(self._grouped(samples),
-                                      depth=2 * self.num_workers)
+        try:
+            if self.num_workers <= 0:
+                yield from self._grouped(samples)
+            else:
+                yield from _in_background(self._grouped(samples),
+                                          depth=2 * self.num_workers)
+        finally:
+            _shut_down(samples)
 
     def __iter__(self):
         if self.group_by_shape:
@@ -759,14 +896,17 @@ class Loader:
             return
 
         loader = iter(torch.utils.data.DataLoader(
-            self.source, batch_sampler=self._batches(),
+            self._fetching, batch_sampler=self._batches(),
             num_workers=self.num_workers, collate_fn=_collate_tensors,
             pin_memory=self.pin_memory and not self.shuffle))
-        if not self.shuffle:
-            yield from loader
-        elif self.num_workers <= 0:
-            yield from map(self._shuffle, loader)
-        else:
-            # as far ahead as the workers' batches in flight (two each)
-            yield from _in_background(map(self._shuffle, loader),
-                                      depth=2 * self.num_workers)
+        try:
+            if not self.shuffle:
+                yield from loader
+            elif self.num_workers <= 0:
+                yield from map(self._shuffle, loader)
+            else:
+                # as far ahead as the workers' batches in flight (two each)
+                yield from _in_background(map(self._shuffle, loader),
+                                          depth=2 * self.num_workers)
+        finally:
+            _shut_down(loader)

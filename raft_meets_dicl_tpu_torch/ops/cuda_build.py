@@ -95,3 +95,19 @@ def aligned(t):
     16-byte asynchronous copies), copied only where it is not."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def refuse_if_deterministic(kernel):
+    """Raise when deterministic algorithms are on
+    (``torch.use_deterministic_algorithms``, which ``main train -e`` sets
+    for an environment's ``deterministic: true``): ``kernel`` sums with
+    ``atomicAdd``, in an order that differs from run to run, which torch's
+    switches do not reach."""
+    import torch
+
+    if torch.are_deterministic_algorithms_enabled():
+        raise RuntimeError(
+            f"{kernel} adds its gradient with atomicAdd and has no "
+            "deterministic form; a deterministic run (environment "
+            "'deterministic: true', torch.use_deterministic_algorithms) "
+            "cannot launch it")

@@ -198,6 +198,8 @@ def _launch_bwd(dout, coords, f2_shape, radius):
     channel. The caller casts it to f2's dtype."""
     global bwd_launches
 
+    cuda_build.refuse_if_deterministic(
+        "the sample_window backward kernel (csrc/sample_window.cu)")
     _check_inputs(dout, f2_shape, coords, radius)
     b, h2, w2, c = f2_shape
     k = 2 * radius + 1

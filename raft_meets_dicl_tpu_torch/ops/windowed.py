@@ -225,6 +225,8 @@ def _launch_df2(dout, f1, f2, coords, level, n_levels, radius,
     (the rule of ``tile_paths`` at ``MAX_BOX``)."""
     global df2_launches
 
+    cuda_build.refuse_if_deterministic(
+        "the windowed-correlation df2 kernel (csrc/windowed_corr.cu)")
     _check_inputs(f1, [f2], coords, radius)
     counts = _path_counts_arg(path_counts, 1, f1.device)
     f2_shape = tuple(f2.shape)

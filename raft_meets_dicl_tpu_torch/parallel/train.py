@@ -8,10 +8,16 @@ host's schedulers pass in (the JAX ``external_lr=True`` contract). The
 step reads nothing back to the host: every entry of its ``aux`` is a
 device tensor, and the trainer decides when to fetch one.
 
+With a wire format (``models.wire.WireFormat``) the step takes the
+batch as it crossed the host→device copy (compact images, f16 flow, a
+bit-packed valid mask) and decodes it first, on the device, as the JAX
+step does inside its jit. The inference step, with the same decode, is
+``evaluation.make_eval_fn``.
+
 Not ported yet, and refused by name: meshes (ROADMAP slice 2 item 10,
-DDP), wire formats (item 9), in-step accumulation (item 8), the ``skip``
-non-finite guard (item 7) and on-device augmentation (slice 7 entry 5,
-the on-device data engine; host augmentation is the ``augment`` source).
+DDP), in-step accumulation (item 8), the ``skip`` non-finite guard (item
+7) and on-device augmentation (slice 7 entry 5, the on-device data
+engine; host augmentation is the ``augment`` source).
 """
 
 import torch
@@ -56,8 +62,6 @@ def make_train_step(model, loss_fn, mesh=None, loss_args=None,
     """
     if mesh is not None:
         _refuse("a device mesh", "slice 2 item 10, DDP")
-    if wire is not None:
-        _refuse("a wire format", "slice 2 item 9, wire formats")
     if augment is not None:
         _refuse("on-device augmentation",
                 "slice 7 entry 5, the on-device data engine")
@@ -76,6 +80,8 @@ def make_train_step(model, loss_fn, mesh=None, loss_args=None,
     def step(state, lr, img1, img2, flow, valid):
         tx = state.tx
         tx.zero_grad()
+        if wire is not None:
+            img1, img2, flow, valid = wire.decode(img1, img2, flow, valid)
 
         out = model.apply(img1, img2, train=True, **model_args)
         result = adapter.wrap_result(out, tuple(img1.shape[1:3]))
@@ -95,9 +101,11 @@ def make_train_step(model, loss_fn, mesh=None, loss_args=None,
                 torch._foreach_sub([p.detach() for p in tx.params], before))
             final = result.final().detach()
             aux.update(loss=loss.detach(), final=final,
-                       finite=torch.isfinite(final).all())
+                       finite=torch.isfinite(final).all(), target=flow,
+                       valid=valid)
 
         state.step += 1
         return state, aux
 
     return step
+

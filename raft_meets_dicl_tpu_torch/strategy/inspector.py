@@ -11,6 +11,11 @@ the same point instead of synchronising every step.
 class Inspector:
     wants_gradients = False
 
+    def wants_host_images(self, step):
+        """Whether ``on_batch`` reads the images' pixel values at this
+        step (a wire-format trainer decodes them for it only then)."""
+        return False
+
     def setup(self, log, ctx):
         pass
 

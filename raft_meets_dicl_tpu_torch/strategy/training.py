@@ -31,9 +31,27 @@ aborts. On the card each step's time is the span between CUDA events
 recorded after consecutive steps (no added synchronisation); on the CPU it
 is the host clock.
 
+The loader's arguments are the environment's (``loader_args``), with the
+stage's ``loader`` keys winning, as in JAX. With a wire format
+(``models.wire.WireFormat``, bound here to the input's clip/range) the
+stage's data is read un-normalized and the adapter encodes the images,
+the flow and the valid mask in the loader's workers (JAX compresses the
+last two at its device put, in its prefetch thread); the bytes that
+cross the host→device copy are counted (each ``history`` entry's
+``wire_bytes``), and the train step decodes the batch on the device. The
+inspector's image summaries get the images decoded on the host, on the
+steps that write them.
+
+JAX also puts a mixed-precision model's host-normalized images as
+bfloat16 when no wire format is set (``RMD_WIRE_BF16``). The port's
+policy rounds the images to bfloat16 at the first convolution of each
+encoder, which is all that reads them, so that put would change the
+bytes only; ``tests/test_torch_port_wire.py`` holds the first step's loss
+and gradients bit for bit with and without the rounding.
+
 Not ported yet, and refused by the train step: the ``skip``/``rollback``
-policies, accumulation, wire formats and meshes; emergency checkpoints on
-a stop request wait with the ops plane (ROADMAP slice 7 item 7).
+policies, accumulation and meshes; emergency checkpoints on a stop request
+wait with the ops plane (ROADMAP slice 7 item 7).
 """
 
 import logging
@@ -69,7 +87,7 @@ class _StepResult:
 class TrainingContext:
     def __init__(self, path, strategy, model_id, model, model_adapter, loss,
                  input, inspector=None, checkpoints=None, device="cuda",
-                 step_limit=None):
+                 step_limit=None, loader_args=None, wire=None):
         self.path = Path(path)
         self.strategy = strategy
         self.model_id = model_id
@@ -81,6 +99,9 @@ class TrainingContext:
         self.checkpoints = checkpoints
         self.device = torch.device(device)
         self.step_limit = step_limit
+        self.loader_args = dict(loader_args or {})
+        self.wire = (wire.bound(input.clip, input.range)
+                     if wire is not None else None)
 
         self.step = 0
         self.initialized = False
@@ -204,9 +225,14 @@ class TrainingContext:
         self.prepare_stage(stage)
 
         log.info(f"loading dataset: {stage.data.source.description()}")
-        loader_args = dict(stage.loader_args)
+        loader_args = self.loader_args | stage.loader_args
         loader_args.setdefault("pin_memory", self.device.type == "cuda")
-        input = self.input.apply(stage.data.source).torch()
+        if self.wire is not None:
+            log.info(f"wire format: {self.wire.describe()} "
+                     "(device-side normalization)")
+        input = self.input.apply(
+            stage.data.source, normalize=self.wire is None,
+        ).torch(wire=self.wire, wire_targets=True)
         self.data = input.loader(
             batch_size=stage.data.batch_size,
             shuffle=stage.data.shuffle,
@@ -252,7 +278,7 @@ class TrainingContext:
         self.model_adapter.on_stage(stage, **stage.model_on_stage_args)
         self.step_fn = make_train_step(
             self.model, self.loss, loss_args=stage.loss_args,
-            model_args=stage.model_args,
+            model_args=stage.model_args, wire=self.wire,
             with_grads=bool(self.inspector.wants_gradients))
 
         self.inspector.on_stage_start(log, self, stage)
@@ -307,16 +333,26 @@ class TrainingContext:
         self.inspector.on_batch_start(log, self, stage, epoch, i, img1, img2,
                                       flow, valid, meta)
 
-        dev = [x.to(self.device, non_blocking=True)
-               for x in (img1, img2, flow, valid)]
+        host = (img1, img2, flow, valid)
+        nbytes = sum(x.nbytes for x in host)
+        dev = [x.to(self.device, non_blocking=True) for x in host]
         self.state, aux = self.step_fn(self.state, lr, *dev)
 
         mark = self._mark()
-        self._pending.append((self.step, lr, aux, self._last_mark, mark))
+
+        # what the inspector reads: the decoded flow and valid mask (the
+        # step's), the images decoded on the host where it writes them
+        target, mask = aux.pop("target"), aux.pop("valid")
+        if self.wire is not None and self.inspector.wants_host_images(
+                self.step):
+            dev[0], dev[1] = (self.wire.decode_image(x) for x in (img1, img2))
+        self._pending.append((self.step, lr, aux, self._last_mark, mark,
+                              nbytes))
         self._last_mark = mark
 
-        self.inspector.on_batch(log, self, stage, epoch, i, *dev, meta,
-                                _StepResult(aux), aux["loss"])
+        self.inspector.on_batch(log, self, stage, epoch, i, dev[0], dev[1],
+                                target, mask, meta, _StepResult(aux),
+                                aux["loss"])
 
         for s in self.lr_sched_inst:
             s.step()
@@ -346,9 +382,9 @@ class TrainingContext:
         values = torch.stack([
             torch.stack([aux["loss"].float(), aux["finite"].float(),
                          aux["grad_norm"].float(), aux["update_norm"].float()])
-            for _, _, aux, _, _ in pending]).cpu()
-        for (step, lr, _, start, end), (loss, finite, gnorm, unorm) in zip(
-                pending, values.tolist()):
+            for _, _, aux, _, _, _ in pending]).cpu()
+        for (step, lr, _, start, end, nbytes), (loss, finite, gnorm, unorm) \
+                in zip(pending, values.tolist()):
             if self.device.type == "cuda":
                 ms = start.elapsed_time(end)
             else:
@@ -356,6 +392,7 @@ class TrainingContext:
             self.history.append({
                 "step": step, "loss": loss, "finite": bool(finite),
                 "lr": lr, "grad_norm": gnorm, "update_norm": unorm, "ms": ms,
+                "wire_bytes": nbytes,
             })
         self.inspector.flush()
 

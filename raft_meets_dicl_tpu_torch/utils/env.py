@@ -12,11 +12,31 @@
   evaluate`` (0 or unset = the model config's; ``--iterations`` wins).
 - ``RMD_EVAL_BUCKETS``: ``main evaluate``'s shape buckets, ``group`` or
   an ``HxW`` list (``--buckets`` wins).
+- ``RMD_WIRE_FORMAT``: the host→device wire format (``f32``, ``bf16``,
+  ``u8``) of ``main train`` (``--wire-format`` wins, then this, then the
+  environment config's ``wire`` section), ``main evaluate``
+  (``--wire-format`` wins) and ``main serve`` (``--wire-format``, then
+  the serve config's ``wire-format`` key, then this).
+- ``RMD_WIRE_BF16`` is not read: JAX's legacy bf16 image put for
+  mixed-precision models is not ported, since the port's bf16 policy
+  rounds the images at the first convolutions anyway, and the step is bit
+  for bit the same with and without it
+  (``tests/test_torch_port_wire.py``).
+- ``RMD_LOADER_RETRIES``: decode attempts of a failing sample after the
+  first, before a neighbour is substituted (default 2).
+- ``RMD_BAD_SAMPLE_BUDGET``: substituted samples a loader may take in its
+  life before it aborts (default 16; 0 turns healing off: the first
+  failure raises).
+- ``RMD_LOADER_PROCS``: decode processes of the training loader (0 or
+  unset: the stage's or environment's ``num_workers``; ``--loader-procs``
+  wins).
 """
 
 import os
 
 FS_VOLUME_GIB_DEFAULT = 4.0
+LOADER_RETRIES_DEFAULT = 2
+BAD_SAMPLE_BUDGET_DEFAULT = 16
 
 
 def get_float(name, default=FS_VOLUME_GIB_DEFAULT):

@@ -448,8 +448,10 @@ def test_loader_shuffle_thread_stops_and_raises(things):
         break
     assert not threads()
 
+    # healing off (budget 0): the sample's own error, not a substitute
     loader = tinput.Loader(_Failing(things_src(root, spec), 5), batch_size=2,
-                           shuffle=True, num_workers=1, seed=1)
+                           shuffle=True, num_workers=1, seed=1,
+                           bad_sample_budget=0)
     with pytest.raises(ValueError, match="cannot decode sample 5"):
         list(loader)
     assert not threads()

@@ -352,18 +352,20 @@ def test_generator_yields_real_samples_in_order(tree):
 
 
 @pytest.mark.parametrize("flag", [
-    ("--wire-format", "u8", "slice 3"),
-    ("--precompile", None, "slice 7"),
-    ("--compile-cache", "cache", "slice 7"),
-    ("--telemetry", "events.jsonl", "slice 7"),
-    ("--device-ids", "0,1", "slice 2 item 10"),
+    # ported, and refused where JAX refuses it: beside --fwbw
+    ("--wire-format", "u8", "--fwbw needs the plain f32", ["--fwbw"],
+     ValueError),
+    ("--precompile", None, "slice 7", [], NotImplementedError),
+    ("--compile-cache", "cache", "slice 7", [], NotImplementedError),
+    ("--telemetry", "events.jsonl", "slice 7", [], NotImplementedError),
+    ("--device-ids", "0,1", "slice 2 item 10", [], NotImplementedError),
 ], ids=lambda f: f[0])
 def test_unported_flags_are_refused_by_name(tree, flag):
-    name, value, item = flag
+    name, value, item, extra, error = flag
     argv = ["evaluate", "-d", str(tree / "source.yaml"), "-m",
             str(tree / "model.json"), "-c", str(tree / "init.ckpt"),
-            "--device", "cpu", name] + ([value] if value else [])
-    with pytest.raises(NotImplementedError, match=item):
+            "--device", "cpu", name] + ([value] if value else []) + extra
+    with pytest.raises(error, match=item):
         tmain.main(argv)
 
 
