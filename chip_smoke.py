@@ -224,7 +224,29 @@ the card and fails (non-zero exit, no result line) on any fault:
    printed beside phase 23's f32 sweep. Phase 22's s1-things run from
    fixed seeds, then rerun twice from its own ``config.json`` with ``-c
    ... --reproduce -e cfg/env/deterministic.yaml``, side by side, each in
-   a process of its own: their losses equal bit for bit.
+   a process of its own: their losses equal bit for bit;
+25. recovery: the shipped bf16-policy ``raft/baseline`` at b6 400x720
+   with ``s1-things.yaml``'s AdamW, one-cycle and clip, through ``main
+   train`` on a synthetic tree. skip: ``-e cfg/env/resilient.yaml`` with
+   ``RMD_FAULT=nan_update@step=3``, 12 steps: step 3's weights and buffers
+   bit for bit as before it, one trip, the others finite, 12 + 12 combine
+   launches, the synchronizing CUDA calls inside each step counted
+   (``torch.cuda.set_sync_debug_mode``), the median step beside phase 8's;
+   rollback: the same environment with a checkpoint every 4 steps and
+   NaN updates at steps 5-7, read every step: one rollback, to the
+   step-4 file, the restored state bit for bit as that file holds it,
+   the run finished; in-step accumulation: one f32 step of b6 and one of
+   2 x b3 (``accumulate=2``) from one seeded init, TF32 off, every pixel
+   valid: loss and parameters within phase 7's card-vs-CPU bounds, the
+   microbatched step's peak memory below the b6 step's, 1 + 1 and 2 + 2
+   combine launches; a stage's ``gradient.accumulate: 2`` over the two
+   halves: the first call moves nothing, the second ends within the same
+   bound of the in-step parameters; ``main train --accumulate 2`` at b3:
+   2 + 2 launches a step, its median step; hooks: ``activation-stats``
+   on ``FeatureEncoderS3_0._Stem_0`` and both anomaly detectors for 4
+   steps: tags at every step, no debug checkpoint, each hook's ms alone
+   on the last batch; ``--detect-anomaly``: 2 steps, their ms, the
+   kernels launched under anomaly mode.
 
 Each phase prints one JSON line (and a ``timing`` line); every phase runs
 even after another failed, and a failure ends the run with exit code 1
@@ -4054,6 +4076,507 @@ def phase_wire_env(card):
     return paths
 
 
+# -- training recovery (phase 25) ------------------------------------------------
+
+REC_PAIRS = 60                # 10 batches of 6 an epoch
+REC_SKIP_STEPS = TRAIN_STEPS    # phase 8's count: the medians compare
+REC_SKIP_AT = 3               # RMD_FAULT=nan_update@step=3
+REC_VAL_EVERY = 4             # step-frequency validation: checkpoints at 4, 8
+REC_ROLLBACK_AT = (5, 6, 7)   # three consecutive trips after the b4 file
+REC_ROLLBACK_STEPS = 9
+REC_ACC_STEPS = 5
+REC_HOOK_STEPS = 4
+REC_ANOMALY_STEPS = 2
+REC_STEM = "FeatureEncoderS3_0._Stem_0"
+
+
+def _rec_strategy(batch, validation=False):
+    """s1-things.yaml's optimizer, schedule and clip on the synthetic
+    scene (``_strategy``), at ``batch``, with a 2-pair validation entry."""
+    text = _strategy("s1-things", batch, "true", 0.000125, gamma=0.8)
+    if validation:
+        text = text.replace(
+            "    model:\n",
+            "    validation:\n"
+            "      - name: val\n"
+            "        batch-size: 2\n"
+            "        source: {type: dataset, spec: val/dataset.yaml}\n"
+            "    model:\n")
+    return text
+
+
+_REC_INSPECT = {
+    "metrics": [{"prefix": "Train:S{n_stage}:{id_stage}/",
+                 "metrics": [{"type": "loss"}]}],
+    "validation": [{"type": "strategy", "frequency": REC_VAL_EVERY,
+                    "checkpoint": True, "images": {"enabled": False},
+                    "metrics": [{"reduce": "mean",
+                                 "metric": {"type": "epe"}}]}],
+}
+
+
+@contextlib.contextmanager
+def _rec_steps(at=None):
+    """Wraps the trainer's step builder: counts the synchronizing CUDA
+    calls inside the step calls (``torch.cuda.set_sync_debug_mode``), and
+    at step ``at`` keeps the module state before and after the call."""
+    import warnings
+
+    from raft_meets_dicl_tpu_torch.strategy import training
+
+    build = training.make_train_step
+    seen = {"calls": 0, "syncs": 0, "syncs_by_call": [], "around": None}
+
+    def wrapped(*args, **kwargs):
+        step = build(*args, **kwargs)
+        module = args[0].module
+
+        def run(state, lr, *batch):
+            keep = at is not None and state.step == at
+            if keep:
+                before = {k: v.clone()
+                          for k, v in module.state_dict().items()}
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = step(state, lr, *batch)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            # the warnings of synchronizing calls (not the mode's one-time
+            # notice that it is a prototype)
+            syncs = [str(w.message) for w in caught
+                     if "called a synchronizing" in str(w.message)]
+            seen["calls"] += 1
+            seen["syncs"] += len(syncs)
+            seen["syncs_by_call"].append(len(syncs))
+            if syncs and "sync_example" not in seen:
+                seen["sync_example"] = syncs[0][:300]
+            if keep:
+                seen["around"] = (before, {k: v.clone() for k, v in
+                                           module.state_dict().items()})
+            return out
+        return run
+
+    training.make_train_step = wrapped
+    try:
+        yield seen
+    finally:
+        training.make_train_step = build
+
+
+def _rec_skip(data, out):
+    """``-e cfg/env/resilient.yaml`` with a NaN update at step 3."""
+    os.environ["RMD_FAULT"] = f"nan_update@step={REC_SKIP_AT}"
+    try:
+        with _rec_steps(at=REC_SKIP_AT) as seen:
+            tctx, wall_s, peak, counts = _run_train(
+                data / "skip.yaml", ROOT / "cfg" / "model" /
+                "raft-baseline.yaml", out, REC_SKIP_STEPS,
+                "-e", str(ROOT / "cfg" / "env" / "resilient.yaml"))
+    finally:
+        del os.environ["RMD_FAULT"]
+    problems = []
+    history = tctx.history
+    flags = [h["finite"] for h in history]
+    expected = [i != REC_SKIP_AT for i in range(REC_SKIP_STEPS)]
+    if flags != expected or tctx.step != REC_SKIP_STEPS:
+        problems.append(f"skip: finite flags {flags}, expected {expected}")
+    trips = int(tctx.state.nonfinite_count)
+    if trips != 1:
+        problems.append(f"skip: {trips} trips counted, expected 1")
+    before, after = seen["around"]
+    changed = [k for k in before if not torch.equal(before[k], after[k])]
+    if changed:
+        problems.append(f"skip: step {REC_SKIP_AT} changed {changed[:3]}")
+    steps = REC_SKIP_STEPS
+    if (counts["convex_combine_8x"], counts["convex_combine_8x_bwd"]) != \
+            (steps, steps):
+        problems.append(f"skip: combine launches {counts}")
+    step_ms = [h["ms"] for h in history]
+    clean = [ms for i, ms in enumerate(step_ms) if i not in (0, REC_SKIP_AT)]
+    readings = dict(
+        env="cfg/env/resilient.yaml", fault=f"nan_update@step={REC_SKIP_AT}",
+        steps=len(history), finite=flags, trips=trips,
+        losses=[h["loss"] for h in history], step_ms=step_ms,
+        median_step_ms=statistics.median(clean),
+        tripped_step_ms=step_ms[REC_SKIP_AT],
+        phase8_median_step_ms=SHARED.get("train_median_step_ms"),
+        step_syncs_per_call=seen["syncs"] / max(1, seen["calls"]),
+        step_syncs_by_call=seen["syncs_by_call"],
+        sync_example=seen.get("sync_example"),
+        max_memory_allocated=peak, wall_s=round(wall_s, 3),
+        launches=_launch_pair(counts))
+    return readings, problems, {"recovery_skip": _launch_dict(counts)}
+
+
+def _launch_pair(counts):
+    return [counts["convex_combine_8x"], counts["convex_combine_8x_bwd"]]
+
+
+def _launch_dict(counts):
+    return {k: counts[k] for k in CONVEX_KERNELS}
+
+
+def _rec_rollback(data, out):
+    """``cfg/env/resilient.yaml``'s rollback policy, a checkpoint every 4
+    steps, NaN updates at steps 5, 6 and 7, the trips read every step."""
+    from raft_meets_dicl_tpu_torch.strategy import checkpoint as chk
+    from raft_meets_dicl_tpu_torch.strategy import training
+
+    (data / "inspect.json").write_text(json.dumps(_REC_INSPECT))
+    os.environ["RMD_FAULT"] = ",".join(f"nan_update@step={s}"
+                                       for s in REC_ROLLBACK_AT)
+    os.environ["RMD_FINITE_CHECK_EVERY"] = "1"
+    restored = []
+    rollback = training.TrainingContext._rollback
+
+    def wrapped(self, log, stage, epoch):
+        rollback(self, log, stage, epoch)
+        # the file as it was restored (a re-run step may write it again)
+        saved = chk.Checkpoint.load(self.rollbacks[-1]["path"]).state.model
+        restored.append((saved, {k: v.detach().cpu().clone() for k, v in
+                                 self.model.module.state_dict().items()}))
+
+    training.TrainingContext._rollback = wrapped
+    try:
+        tctx, wall_s, peak, counts = _run_train(
+            data / "rollback.yaml", ROOT / "cfg" / "model" /
+            "raft-baseline.yaml", out, REC_ROLLBACK_STEPS,
+            "-e", str(ROOT / "cfg" / "env" / "resilient.yaml"),
+            "-i", str(data / "inspect.json"))
+    finally:
+        training.TrainingContext._rollback = rollback
+        del os.environ["RMD_FAULT"], os.environ["RMD_FINITE_CHECK_EVERY"]
+    problems = []
+    if len(tctx.rollbacks) != 1 or len(restored) != 1:
+        problems.append(f"rollback: {tctx.rollbacks} rollbacks")
+        record = None
+    else:
+        record = tctx.rollbacks[0]
+        saved, live = restored[0]
+        differ = [k for k in saved if not torch.equal(saved[k], live[k])]
+        if set(saved) != set(live) or differ:
+            problems.append(f"rollback: restored state differs from the "
+                            f"checkpoint at {differ[:3]}")
+        if (record["from_step"], record["to_step"]) != \
+                (REC_ROLLBACK_AT[-1] + 1, REC_VAL_EVERY):
+            problems.append(f"rollback: {record}")
+    if tctx.step != REC_ROLLBACK_STEPS:
+        problems.append(f"rollback: run ended at step {tctx.step}")
+    calls = len(tctx.history)
+    train_launches = [counts["convex_combine_8x"] - sum(
+        r["batches"] for r in tctx.inspector.val_step[0].runs),
+        counts["convex_combine_8x_bwd"]]
+    if train_launches != [calls, calls]:
+        problems.append(f"rollback: combine launches {train_launches} for "
+                        f"{calls} step calls")
+    readings = dict(
+        env="cfg/env/resilient.yaml", faults=",".join(
+            f"nan_update@step={s}" for s in REC_ROLLBACK_AT),
+        rollbacks=tctx.rollbacks, step_calls=calls,
+        steps=[h["step"] for h in tctx.history],
+        finite=[h["finite"] for h in tctx.history],
+        checkpoints=sorted(Path(r["path"]).name
+                           for r in tctx.checkpoints.saves),
+        wall_s=round(wall_s, 3), max_memory_allocated=peak,
+        launches=_launch_pair(counts), train_launches=train_launches)
+    return readings, problems, {"recovery_rollback": _launch_dict(counts)}
+
+
+def _rec_batch(batch, shape, seed):
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    return [torch.from_numpy(x).cuda() for x in (
+        rng.uniform(-1, 1, (batch, h, w, 3)).astype(np.float32),
+        rng.uniform(-1, 1, (batch, h, w, 3)).astype(np.float32),
+        (4 * rng.standard_normal((batch, h, w, 2))).astype(np.float32),
+        np.ones((batch, h, w), bool))]
+
+
+def _rec_steps_f32():
+    """The f32 model, TF32 off, from one seeded init: one step of b6, the
+    in-step 2 x b3 step, and the stage's ``accumulate: 2`` over two calls
+    of b3, each from the same weights. Every pixel is valid, so the mean
+    of the microbatch losses is the batch loss."""
+    from raft_meets_dicl_tpu_torch import parallel, strategy
+
+    set_tf32(False)
+    spec = _load_raft(False)
+    spec.model.init(torch.Generator().manual_seed(0), device="cuda")
+    weights = {k: v.clone() for k, v in spec.model.module.state_dict().items()}
+    batch = _rec_batch(TRAIN_BATCH, TRAIN_SHAPE, 5)
+    optimizer = strategy.spec.OptimizerSpec("adam-w", {
+        "lr": STEP_LR, "weight_decay": 1e-4, "eps": STEP_EPS})
+    spec.model.on_stage(None, freeze_batchnorm=True)
+
+    def fresh(accumulate=1):
+        spec.model.module.load_state_dict(weights)
+        gradient = strategy.spec.GradientSpec.from_config(
+            {"clip": {"type": "norm", "value": 1.0},
+             "accumulate": accumulate})
+        tx, _ = optimizer.build(spec.model.module.parameters(), gradient)
+        return parallel.TrainState(spec.model, tx)
+
+    def params():
+        return {n: p.detach().clone()
+                for n, p in spec.model.module.named_parameters()}
+
+    out = {}
+    for name, accumulate in (("b6", 1), ("in_step", 2)):
+        state = fresh()
+        step = parallel.make_train_step(spec.model, spec.loss,
+                                        accumulate=accumulate)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, aux = step(state, STEP_LR, *batch)
+        end.record()
+        torch.cuda.synchronize()
+        out[name] = dict(loss=aux["loss"].item(), params=params(),
+                         peak=torch.cuda.max_memory_allocated(),
+                         ms=start.elapsed_time(end),
+                         launches=_launch_pair(_counts()))
+
+    state = fresh(accumulate=2)
+    step = parallel.make_train_step(spec.model, spec.loss)
+    start_params = params()
+    half = TRAIN_BATCH // 2
+    _, first = step(state, STEP_LR, *(x[:half] for x in batch))
+    after_first = params()
+    _, second = step(state, STEP_LR, *(x[half:] for x in batch))
+    out["stage"] = dict(
+        first_unchanged=all(torch.equal(after_first[n], start_params[n])
+                            for n in start_params),
+        first_update_norm=first["update_norm"].item(),
+        params=params(), mini_step=state.tx.mini_step)
+    return out
+
+
+def _max_param_diff(a, b):
+    return max((a[n] - b[n]).abs().max().item() for n in a)
+
+
+def _rec_accumulate(data, out):
+    """The f32 comparisons, then ``main train --accumulate 2`` at b3."""
+    steps = _rec_steps_f32()
+    b6, acc, stage = steps["b6"], steps["in_step"], steps["stage"]
+    readings = dict(
+        f32_b6=dict(loss=b6["loss"], ms=b6["ms"], peak=b6["peak"],
+                    launches=b6["launches"]),
+        f32_in_step=dict(
+            loss=acc["loss"], ms=acc["ms"], peak=acc["peak"],
+            launches=acc["launches"],
+            loss_rel_diff=abs(acc["loss"] - b6["loss"]) / abs(b6["loss"]),
+            param_max_abs_diff=_max_param_diff(acc["params"],
+                                               b6["params"])),
+        f32_stage=dict(
+            first_call_unchanged=stage["first_unchanged"],
+            first_update_norm=stage["first_update_norm"],
+            mini_step_after=stage["mini_step"],
+            param_max_abs_diff_vs_in_step=_max_param_diff(
+                stage["params"], acc["params"]),
+            param_max_abs_diff_vs_b6=_max_param_diff(stage["params"],
+                                                     b6["params"])),
+        bounds={"loss": STEP_LOSS_REL, "params": STEP_PARAM_MAX_ABS})
+    problems = []
+    r = readings["f32_in_step"]
+    if not r["loss_rel_diff"] <= STEP_LOSS_REL:
+        problems.append(f"in-step: loss relative |diff| {r['loss_rel_diff']}")
+    if not r["param_max_abs_diff"] <= STEP_PARAM_MAX_ABS:
+        problems.append(f"in-step: params max |diff| "
+                        f"{r['param_max_abs_diff']}")
+    if not acc["peak"] < b6["peak"]:
+        problems.append(f"in-step: peak memory {acc['peak']} not below the "
+                        f"b6 step's {b6['peak']}")
+    if acc["launches"] != [2, 2] or b6["launches"] != [1, 1]:
+        problems.append(f"in-step: combine launches {acc['launches']} "
+                        f"(b6 {b6['launches']})")
+    s = readings["f32_stage"]
+    if not s["first_call_unchanged"] or s["mini_step_after"] != 0:
+        problems.append(f"stage: {s}")
+    if not s["param_max_abs_diff_vs_in_step"] <= STEP_PARAM_MAX_ABS:
+        problems.append("stage: params max |diff| vs in-step "
+                        f"{s['param_max_abs_diff_vs_in_step']}")
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tctx, wall_s, peak, counts = _run_train(
+        data / "b3.yaml", ROOT / "cfg" / "model" / "raft-baseline.yaml", out,
+        REC_ACC_STEPS, "--accumulate", "2")
+    run, p = _run_readings(tctx, TRAIN_BATCH, REC_ACC_STEPS, wall_s)
+    problems += [f"main train --accumulate 2: {x}" for x in p]
+    launches = _launch_pair(counts)
+    if launches != [2 * REC_ACC_STEPS, 2 * REC_ACC_STEPS]:
+        problems.append(f"main train --accumulate 2: combine launches "
+                        f"{launches}, expected 2 + 2 a step")
+    readings["main_train"] = dict(
+        batch=f"2 x {TRAIN_BATCH // 2}", steps=run["steps"],
+        losses=run["losses"],
+        median_step_ms=run["median_step_ms"],
+        pairs_per_sec=run["pairs_per_sec"], max_memory_allocated=peak,
+        launches=launches, launches_per_step=[n / REC_ACC_STEPS
+                                              for n in launches],
+        phase8_median_step_ms=SHARED.get("train_median_step_ms"))
+    return readings, problems, {"recovery_accumulate": _launch_dict(counts)}
+
+
+def _rec_log():
+    import logging
+
+    return logging.getLogger("chip_smoke")
+
+
+def _rec_hooks(data, out):
+    """``activation-stats`` on the feature encoder's stem and both anomaly
+    detectors, through ``main train``; then each hook's cost alone on the
+    run's last batch and gradients."""
+    from raft_meets_dicl_tpu_torch.inspect import writer as twriter
+
+    hooks = [{"type": "activation-stats", "modules": [REC_STEM],
+              "frequency": 1},
+             {"type": "anomalydetect-activation", "save-checkpoint": True},
+             {"type": "anomalydetect-gradient", "save-checkpoint": True}]
+    cfg = {"metrics": _REC_INSPECT["metrics"], "hooks": hooks}
+    (data / "hooks.json").write_text(json.dumps(cfg))
+    captured = {}
+    from raft_meets_dicl_tpu_torch.inspect import summary
+
+    on_batch = summary.SummaryInspector.on_batch
+
+    def keep(self, log, ctx, stage, epoch, i, img1, img2, *rest):
+        captured.update(ctx=ctx, stage=stage, images=(img1, img2),
+                        grads=rest[3].aux.get("grads"))
+        return on_batch(self, log, ctx, stage, epoch, i, img1, img2, *rest)
+
+    summary.SummaryInspector.on_batch = keep
+    try:
+        with _rec_steps() as seen:
+            tctx, wall_s, peak, counts = _run_train(
+                data / "skip.yaml", ROOT / "cfg" / "model" /
+                "raft-baseline.yaml", out, REC_HOOK_STEPS,
+                "-i", str(data / "hooks.json"))
+    finally:
+        summary.SummaryInspector.on_batch = on_batch
+    problems = []
+    events = twriter.read_events(tctx.inspector.writer.path)
+    tags = sorted({v["tag"] for e in events for v in e.get("values", [])
+                   if "ActivationStats" in v["tag"]})
+    steps = sorted({e["step"] for e in events for v in e.get("values", [])
+                    if "ActivationStats" in v["tag"]})
+    if not tags or steps != list(range(REC_HOOK_STEPS)):
+        problems.append(f"hooks: activation tags {tags[:4]} at steps {steps}")
+    dumps = sorted(p.name for p in tctx.path.glob("*.ckpt"))
+    if dumps:
+        problems.append(f"hooks: debug checkpoints written {dumps}")
+    launches = _launch_pair(counts)
+    # the capture forward runs the combine once more a step
+    if launches != [2 * REC_HOOK_STEPS, REC_HOOK_STEPS]:
+        problems.append(f"hooks: combine launches {launches}")
+
+    # each hook alone, on the last batch: device work and its fetch (the
+    # run's writer is closed: a scratch one takes the scalars)
+    insp = tctx.inspector
+    ctx, stage = captured["ctx"], captured["stage"]
+    scratch = twriter.SummaryWriter(out / "hook-timing")
+    scratch.set_fmtargs(dict(insp.writer.fmt.fmtargs))
+    for hook in insp.hooks:
+        hook.writer = scratch
+    hook_ms = {}
+    for hook in insp.hooks:
+        others = [h for h in insp.hooks if h is not hook]
+        for h in others:
+            h.active = False
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if hook.needs_grads:
+                hook.on_grads(_rec_log(), ctx, captured["grads"])
+            else:
+                insp._run_intermediate_hooks(_rec_log(), ctx, stage,
+                                             *captured["images"])
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        for h in others:
+            h.active = True
+        hook_ms[hook.type] = statistics.median(times)
+    scratch.close()
+    run, p = _run_readings(tctx, TRAIN_BATCH, REC_HOOK_STEPS, wall_s)
+    problems += [f"hooks: {x}" for x in p]
+    readings = dict(
+        hooks=[h["type"] for h in hooks], module=REC_STEM,
+        activation_tags=len(tags), tag_example=tags[:2],
+        debug_checkpoints=dumps, median_step_ms=run["median_step_ms"],
+        phase8_median_step_ms=SHARED.get("train_median_step_ms"),
+        hook_ms_per_step=hook_ms, max_memory_allocated=peak,
+        step_syncs_per_call=seen["syncs"] / max(1, seen["calls"]),
+        step_syncs_by_call=seen["syncs_by_call"], launches=launches)
+    return readings, problems, {"recovery_hooks": _launch_dict(counts)}
+
+
+def _rec_anomaly(data, out):
+    """Two steps under ``--detect-anomaly``."""
+    tctx, wall_s, peak, counts = _run_train(
+        data / "skip.yaml", ROOT / "cfg" / "model" / "raft-baseline.yaml",
+        out, REC_ANOMALY_STEPS, "--detect-anomaly")
+    problems = []
+    launches = _launch_pair(counts)
+    if launches != [REC_ANOMALY_STEPS, REC_ANOMALY_STEPS]:
+        problems.append(f"detect-anomaly: combine launches {launches}")
+    if torch.is_anomaly_enabled():
+        problems.append("detect-anomaly: still on after the run")
+    if not all(np.isfinite(h["loss"]) for h in tctx.history) or \
+            len(tctx.history) != REC_ANOMALY_STEPS:
+        problems.append(f"detect-anomaly: history {tctx.history}")
+    readings = dict(step_ms=[h["ms"] for h in tctx.history],
+                    wall_s=round(wall_s, 3), launches=launches)
+    return readings, problems, {"recovery_detect_anomaly":
+                                _launch_dict(counts)}
+
+
+def phase_recovery(card):
+    """Training recovery on the card with the shipped bf16-policy
+    raft/baseline at b6 400x720: ``-e cfg/env/resilient.yaml`` skipping a
+    NaN update, its rollback after three consecutive trips, in-step and a
+    stage's gradient accumulation, the inspector's hooks and
+    ``--detect-anomaly``."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    problems, readings, paths = [], {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        data = tmp / "data"
+        _write_training_tree(data, TRAIN_SHAPE, REC_PAIRS,
+                             _rec_strategy(TRAIN_BATCH))
+        _write_training_tree(data / "val", TRAIN_SHAPE, 2, "")
+        (data / "skip.yaml").write_text(_rec_strategy(TRAIN_BATCH))
+        (data / "rollback.yaml").write_text(
+            _rec_strategy(TRAIN_BATCH, validation=True))
+        (data / "b3.yaml").write_text(_rec_strategy(TRAIN_BATCH // 2))
+        for name, part in (("skip", _rec_skip), ("rollback", _rec_rollback),
+                           ("accumulate", _rec_accumulate),
+                           ("hooks", _rec_hooks),
+                           ("detect_anomaly", _rec_anomaly)):
+            t0 = time.perf_counter()
+            try:
+                r, p, launches = part(data, tmp / f"runs-{name}")
+            except Exception as e:  # every case runs; the phase fails
+                traceback.print_exc()
+                r, p, launches = {}, [f"{name}: {e!r}"], {}
+            r["seconds"] = round(time.perf_counter() - t0, 3)
+            readings[name] = r
+            emit(phase="recovery", case=name, card=card, **r)
+            problems += p
+            paths.update(launches)
+    if problems:
+        raise AssertionError("recovery phase: " + "; ".join(problems))
+    return paths
+
+
 def kernels_line(results):
     """The nine kernels with their checks, times and launches.
     ``launches`` is the count of the main path of the slice that ported
@@ -4087,6 +4610,7 @@ def kernels_line(results):
            for path, counts in results["phase_augmented_train"].items()},
         **results["phase_evaluate"],
         **results["phase_wire_env"],
+        **results["phase_recovery"],
     }
 
     def launches(name):
@@ -4340,7 +4864,7 @@ def main():
               phase_fs_serve, phase_fs_train_step, phase_fs_train,
               phase_fs_train_all_levels, phase_lookup_kernels, phase_quant,
               phase_lifecycle, phase_augmented_train, phase_evaluate,
-              phase_wire_env)
+              phase_wire_env, phase_recovery)
     for phase in phases:
         run(phase)
     if failed:

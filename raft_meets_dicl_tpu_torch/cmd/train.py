@@ -29,13 +29,22 @@ The wire format (``models.wire``): ``--wire-format`` > ``RMD_WIRE_FORMAT``
 ``loader`` section, ``--loader-procs`` over its ``procs``, the stage's
 ``loader`` keys over both.
 
+The non-finite policy (``strategy.training.NonFinitePolicy``):
+``--nonfinite`` > ``RMD_NONFINITE`` > the environment's ``nonfinite``
+section. In-step accumulation: ``--accumulate`` > ``RMD_ACCUMULATE`` > the
+environment's ``parallel.accumulate``. ``--detect-anomaly`` and the
+environment's ``jax.debug-nans`` turn on
+``torch.autograd.set_detect_anomaly`` (the call the original PyTorch
+framework made, and what JAX's ``jax_debug_nans`` stands in for) for the
+run.
+
 The strategy's data graph is the JAX package's: ``augment`` with its 15
 host augmentations, ``concat``, ``repeat``, ``subset``, ``cache``, the
 forwards/backwards sources and the ``generic``, ``generic-backwards`` and
 ``multi`` layouts (``synth`` is refused). The flags of parts not ported
-yet (meshes, device augmentation, non-finite policies other than
-``raise``) do not exist, and the environment sections that ask for them
-are refused by name; ROADMAP slice 2 items 7-10 and slice 7 bring them.
+yet (meshes, device augmentation) do not exist, and the environment
+sections that ask for them are refused by name; ROADMAP slice 2 item 10
+and slice 7 bring them.
 """
 
 import datetime
@@ -49,7 +58,7 @@ import torch
 
 from .. import inspect, models, strategy, utils
 from ..models.wire import WireFormat
-from ..strategy.training import TrainingContext
+from ..strategy.training import NonFinitePolicy, TrainingContext
 
 _ROOT = Path(__file__).resolve().parents[2]
 DEFAULT_ENV = _ROOT / "cfg" / "env" / "default.yaml"
@@ -61,14 +70,14 @@ def _refuse(what, item):
 
 
 class Environment:
-    """Loader arguments, wire format and the deterministic switch (the JAX
-    ``Environment``; its ``jax.deterministic`` maps onto torch's switches
-    in :meth:`apply`).
+    """Loader arguments, wire format, the non-finite policy, in-step
+    accumulation and the deterministic and anomaly switches (the JAX
+    ``Environment``; its ``jax`` section maps onto torch's switches in
+    :meth:`apply`).
 
-    The sections of parts not ported yet are refused by name when set: a
-    ``nonfinite`` policy other than ``raise`` and ``jax.debug-nans``
-    (slice 2 item 7), ``parallel`` (items 8 and 10), ``compile``,
-    ``augment`` and ``eval`` (slice 7).
+    The sections of parts not ported yet are refused by name when set:
+    ``parallel.mesh`` (slice 2 item 10), ``compile``, ``augment`` and
+    ``eval`` (slice 7).
     """
 
     @classmethod
@@ -102,18 +111,10 @@ class Environment:
         self.debug_nans = bool(debug_nans)
         self.deterministic = bool(deterministic)
 
-        policy = (nonfinite.get("policy", "raise")
-                  if isinstance(nonfinite, dict) else nonfinite)
-        if policy not in (None, "raise"):
-            _refuse(f"the non-finite policy '{policy}'",
-                    "slice 2 item 7, non-finite skip/rollback policies")
-        if self.debug_nans:
-            _refuse("'jax: debug-nans'",
-                    "slice 2 item 7, non-finite policies and anomaly "
-                    "detection")
-        if self.parallel:
-            _refuse("the 'parallel' section (meshes, in-step accumulation)",
-                    "slice 2 items 10 and 8, DDP and in-step accumulation")
+        NonFinitePolicy.from_config(nonfinite)  # a bad policy fails here
+        if "mesh" in self.parallel:
+            _refuse("a device mesh ('parallel: mesh')",
+                    "slice 2 item 10, DDP")
         if self.compile:
             _refuse("the 'compile' section", "slice 7 item 3, compile/")
         if self.augment:
@@ -139,11 +140,15 @@ class Environment:
         }
 
     def apply(self):
-        """``deterministic``: torch's deterministic algorithms on (an op
+        """``debug-nans``: ``torch.autograd.set_detect_anomaly(True)``
+        (process-wide; ``train`` restores it when the run ends).
+        ``deterministic``: torch's deterministic algorithms on (an op
         with no deterministic form raises, and so do the port's two
         kernels that add with atomics), cuDNN deterministic and not
         benchmarking, and ``CUBLAS_WORKSPACE_CONFIG`` set for cuBLAS; run
         before the first cuBLAS call."""
+        if self.debug_nans:
+            torch.autograd.set_detect_anomaly(True)
         if not self.deterministic:
             return
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -227,7 +232,11 @@ def train(args):
 
     # before anything touches cuBLAS: the deterministic switches
     env = Environment.load(cfg_env)
+    anomaly = torch.is_anomaly_enabled()
     env.apply()
+    if getattr(args, "detect_anomaly", False):
+        logging.warning("anomaly detection enabled")
+        torch.autograd.set_detect_anomaly(True)
 
     suffix = ""
     if args.suffix:
@@ -310,10 +319,26 @@ def train(args):
         if env.deterministic:
             logging.info("deterministic algorithms: on")
 
+        # non-finite policy: CLI flag > RMD_NONFINITE > the environment's
+        nonfinite = NonFinitePolicy.from_config(
+            getattr(args, "nonfinite", None)
+            or utils.env.get_str("RMD_NONFINITE") or env.nonfinite)
+        if nonfinite.policy != "raise":
+            logging.info(f"non-finite step policy: {nonfinite.get_config()}")
+
+        # in-step accumulation: CLI flag > RMD_ACCUMULATE > the environment's
+        accumulate = int(getattr(args, "accumulate", None)
+                         or utils.env.get_str("RMD_ACCUMULATE")
+                         or env.parallel.get("accumulate", 1) or 1)
+        if accumulate > 1:
+            logging.info(f"gradient accumulation: {accumulate} microbatches "
+                         "per optimizer step (in-step)")
+
         tctx = TrainingContext(
             path_out, strat, model.id, model.model, model.model.get_adapter(),
             model.loss, model.input, inspector, chkptm, device=device,
-            step_limit=args.steps, loader_args=loader_args, wire=wire)
+            step_limit=args.steps, loader_args=loader_args, wire=wire,
+            nonfinite=nonfinite, accumulate=accumulate)
 
         chkpt = None
         if args.checkpoint:
@@ -341,6 +366,7 @@ def train(args):
         tctx.run(args.start_stage, args.start_epoch, chkpt)
         return tctx
     finally:
+        torch.autograd.set_detect_anomaly(anomaly)
         if chkptm is not None:
             chkptm.wait()
         if inspector is not None:

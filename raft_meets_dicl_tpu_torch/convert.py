@@ -16,7 +16,12 @@ makes torch's k4/s2/p1 geometry equal flax's 'SAME', batch-norm
 The JAX package's checkpoint files load through the same rules
 (:func:`load_jax_checkpoint`): the weights, and optax's Adam / AdamW state
 (``count``, ``mu``, ``nu``) as torch's ``step``, ``exp_avg`` and
-``exp_avg_sq``.
+``exp_avg_sq``; a stage's ``optax.MultiSteps`` state (``mini_step``,
+``acc_grads`` around the Adam state) also gives the running mean and the
+count of a partial accumulation (``strategy.spec.GradientTransform``).
+
+:func:`activation_points` maps flax module paths onto this package's
+modules for the inspector's activation hooks.
 """
 
 from collections.abc import Mapping
@@ -282,6 +287,9 @@ def optax_state_to_torch(opt_state, module, optimizer):
     if not isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW)):
         raise ValueError(f"cannot map optax Adam state onto "
                          f"{type(optimizer).__name__}")
+    multi = _multi_steps_state(opt_state)
+    if multi is not None:
+        opt_state = multi["inner_opt_state"]
     found = list(_adam_states(opt_state))
     if len(found) != 1:
         raise ValueError(f"expected one optax ScaleByAdamState, found "
@@ -295,14 +303,33 @@ def optax_state_to_torch(opt_state, module, optimizer):
 
     names = {id(p): n for n, p in module.named_parameters()}
     target = optimizer.state_dict()
-    state, index = {}, 0
+    state, order = {}, []
     for group in optimizer.param_groups:
         for p in group["params"]:
             name = names[id(p)]
-            state[index] = {"step": step.clone(), "exp_avg": exp_avg[name],
-                            "exp_avg_sq": exp_avg_sq[name]}
-            index += 1
-    return {"state": state, "param_groups": target["param_groups"]}
+            state[len(order)] = {"step": step.clone(),
+                                 "exp_avg": exp_avg[name],
+                                 "exp_avg_sq": exp_avg_sq[name]}
+            order.append(name)
+    out = {"state": state, "param_groups": target["param_groups"]}
+    if multi is not None:
+        acc = jax_variables_to_state_dict({"params": multi["acc_grads"]},
+                                          rules)
+        out["accumulate"] = {
+            "mini_step": int(np.asarray(multi["mini_step"])),
+            "acc": {i: acc[name] for i, name in enumerate(order)},
+        }
+    return out
+
+
+def _multi_steps_state(tree):
+    """The flax state dict of an ``optax.MultiSteps`` state at the root of
+    ``tree`` (a mapping with ``mini_step``, ``acc_grads`` and
+    ``inner_opt_state``), or None."""
+    if isinstance(tree, Mapping) and {"mini_step", "acc_grads",
+                                      "inner_opt_state"} <= set(tree):
+        return tree
+    return None
 
 
 def load_jax_checkpoint(path, module, optimizer=None):
@@ -319,3 +346,64 @@ def load_jax_checkpoint(path, module, optimizer=None):
         raise ValueError(f"'{path}' is not a JAX package checkpoint")
     chkpt.apply(module=module, optimizer=optimizer)
     return chkpt
+
+
+# -- activation capture points ------------------------------------------------
+
+# the module flax's Norm2d wraps, by this package's norm class
+_NORM_INNER = {"BatchNorm2d": "BatchNorm_0", "GroupNorm": "GroupNorm_0",
+               "InstanceNorm2d": "GroupNorm_0", "NoNorm2d": None}
+
+
+def activation_points(module):
+    """flax module path -> ``(torch module path, "output" | "input")`` for
+    every module whose output the JAX package's ``capture_intermediates``
+    forward records in raft/baseline and raft/fs: the two S3 encoders and
+    everything in them, the convex upsampler (batched over the
+    iterations, as in both packages) and the whole model (``__call__``).
+    The recurrent step's modules run inside JAX's scan, whose
+    intermediates flax does not keep, and have no point. ``input`` is the
+    input of the module named: the encoders' ``_Stem_0`` output is the
+    input of their ``conv2``.
+
+    The names follow the S3 rules of :func:`raft_rules` (module paths
+    with parameters), plus flax's parameterless wrappers: ``Norm2d_k``
+    and its inner ``BatchNorm_0``/``GroupNorm_0`` are one torch norm
+    module, ``ResidualBlock_i`` is torch's ``layer{i // 2 + 1}.{i % 2}``.
+    Raises ``NotImplementedError`` for the coarse-to-fine models."""
+    if isinstance(module, RaftPlusDiclCtfModule):
+        raise NotImplementedError(
+            "activation hooks of the raft+dicl coarse-to-fine models are "
+            "not ported yet (ROADMAP slice 2 item 7's rest)")
+    mods = dict(module.named_modules())
+    points = {"__call__": ("", "output")}
+    for flax_enc, torch_enc in (("FeatureEncoderS3_0", "fnet"),
+                                ("FeatureEncoderS3_1", "cnet")):
+        if f"{torch_enc}.conv2" not in mods or \
+                f"{torch_enc}.layer3.1" not in mods:
+            raise NotImplementedError(
+                f"activation hooks of the '{torch_enc}' encoder type are "
+                "not ported yet (ROADMAP slice 2 item 7's rest)")
+        points[flax_enc] = (torch_enc, "output")
+        points[f"{flax_enc}.Conv_0"] = (f"{torch_enc}.conv2", "output")
+        stem = f"{flax_enc}._Stem_0"
+        points[stem] = (f"{torch_enc}.conv2", "input")
+        for flax_frag, torch_mod in _stem_rules(torch_enc).items():
+            if torch_mod not in mods:  # the 1x1 shortcut of stride-1 blocks
+                continue
+            flax_path = f"{stem}.{flax_frag}"
+            if flax_frag.endswith(".BatchNorm_0"):
+                wrapper = flax_path[:-len(".BatchNorm_0")]
+                points[wrapper] = (torch_mod, "output")
+                inner = _NORM_INNER[type(mods[torch_mod]).__name__]
+                if inner is not None:
+                    points[f"{wrapper}.{inner}"] = (torch_mod, "output")
+            else:
+                points[flax_path] = (torch_mod, "output")
+        for i in range(6):
+            points[f"{stem}.ResidualBlock_{i}"] = (
+                f"{torch_enc}.layer{i // 2 + 1}.{i % 2}", "output")
+    points["Up8Network_0"] = ("update_block.mask", "output")
+    points["Up8Network_0.Conv_0"] = ("update_block.mask.0", "output")
+    points["Up8Network_0.Conv_1"] = ("update_block.mask.2", "output")
+    return points

@@ -13,8 +13,16 @@
   samples' images, and creates a checkpoint with the metric dict: the
   only place checkpoints are born during training, as in JAX.
 
-Not ported yet, and refused by name: inspector hooks (intermediates and
-gradient hooks; ROADMAP slice 2 item 7), the forwards-backwards occlusion
+- Hooks (``inspect.hooks``: ``activation-stats``,
+  ``anomalydetect-activation``, ``anomalydetect-gradient``) are set up
+  with the run, switched around every validation pass by their ``when``
+  (``training`` hooks off during validation, ``validation`` ones on), fed
+  the step's gradients every step, and, at their frequency on a step's
+  first microbatch, one auxiliary capture forward of the step's images
+  (no gradient, ``train=False``, the stage's model arguments) with
+  forward hooks on the modules their flax paths name.
+
+Not ported yet, and refused by name: the forwards-backwards occlusion
 and confidence images (with ``video/``, slice 7), validation shape
 buckets (an environment config, slice 7 ops plane).
 """
@@ -28,9 +36,10 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from .. import evaluation, metrics, visual
+from .. import convert, evaluation, metrics, visual
 from ..strategy.checkpoint import CheckpointManager
 from ..strategy.inspector import Inspector
+from .hooks import Hook, capture_activations
 from .writer import SummaryWriter
 
 
@@ -390,29 +399,28 @@ class StrategyValidation(Validation):
 class InspectorSpec:
     @classmethod
     def from_config(cls, cfg):
-        if cfg.get("hooks"):
-            raise NotImplementedError(
-                "inspector hooks are not ported yet (ROADMAP slice 2 item "
-                "7)")
         return cls(
             [MetricsGroup.from_config(m) for m in cfg.get("metrics", [])],
             ImagesSpec.from_config(cfg.get("images")),
             CheckpointSpec.from_config(cfg.get("checkpoints", {})),
             [Validation.from_config(v) for v in cfg.get("validation", [])],
             cfg.get("tensorboard", {}).get("path", "tb.{id_model}"),
+            [Hook.from_config(h) for h in cfg.get("hooks", [])],
         )
 
-    def __init__(self, mtx, images, checkpoints, validation, tb_path):
+    def __init__(self, mtx, images, checkpoints, validation, tb_path,
+                 hooks=()):
         self.metrics = mtx
         self.images = images
         self.checkpoints = checkpoints
         self.validation = validation
         self.tb_path = tb_path
+        self.hooks = list(hooks)
 
     def get_config(self):
         return {
             "metrics": [g.get_config() for g in self.metrics],
-            "hooks": [],
+            "hooks": [h.get_config() for h in self.hooks],
             "images": (self.images.get_config()
                        if self.images is not None else None),
             "checkpoints": self.checkpoints.get_config(),
@@ -430,12 +438,13 @@ class InspectorSpec:
         writer = SummaryWriter(path)
 
         insp = SummaryInspector(writer, self.metrics, self.images, chkpts,
-                                self.validation)
+                                self.validation, self.hooks)
         return insp, chkpts
 
 
 class SummaryInspector(Inspector):
-    def __init__(self, writer, mtx, images, checkpoints, validation):
+    def __init__(self, writer, mtx, images, checkpoints, validation,
+                 hooks=()):
         super().__init__()
 
         self.writer = writer
@@ -443,6 +452,7 @@ class SummaryInspector(Inspector):
         self.images = images
         self.checkpoints = checkpoints
         self.validation = list(validation)
+        self.hooks = list(hooks)
 
         self.val_step = [v for v in validation
                          if not isinstance(v.frequency, str)]
@@ -451,17 +461,82 @@ class SummaryInspector(Inspector):
 
         # (step, group, computed values) of steps not yet written
         self._queued = []
+        self.batch_index = 0
+        self._points = None
 
     @property
     def wants_gradients(self):
-        """The trainer returns the gradients from its step iff a metric
-        asks for them."""
-        return any(g.wants_gradients for g in self.metrics)
+        """The trainer returns the gradients from its step iff a metric or
+        a hook asks for them."""
+        return (any(g.wants_gradients for g in self.metrics)
+                or any(h.needs_grads for h in self.hooks))
+
+    def _capture_due(self, step):
+        return [h for h in self.hooks
+                if h.active and h.needs_intermediates
+                and step % getattr(h, "frequency", 1) == 0]
 
     def wants_host_images(self, step):
-        """Pixel values are read only on image-dump steps: the wire-format
-        trainer decodes the images for those alone."""
+        """Pixel values are read only on capture and image-dump steps: the
+        wire-format trainer decodes the images for those alone."""
+        if self._capture_due(step):
+            return True
         return self.images is not None and step % self.images.frequency == 0
+
+    # -- hook phases around validation ------------------------------------
+
+    def setup(self, log, ctx):
+        for hook in self.hooks:
+            hook.active = False
+        for hook in self.hooks:
+            if hook.when in ("training", "all"):
+                hook.register(ctx, self.writer)
+
+    def _pre_validation(self, log, ctx):
+        for hook in self.hooks:
+            if hook.when == "training":
+                hook.active = False
+            elif not hook.active:
+                hook.register(ctx, self.writer)
+
+    def _post_validation(self, log, ctx):
+        for hook in self.hooks:
+            if hook.when == "validation":
+                hook.active = False
+            elif not hook.active:
+                hook.register(ctx, self.writer)
+
+    def _validate(self, log, ctx, due, stage, epoch):
+        if not due:
+            return
+        self._pre_validation(log, ctx)
+        for val in due:
+            val.run(log, ctx, self.writer, self.checkpoints, stage, epoch)
+        self._post_validation(log, ctx)
+
+    # -- the capture forward ------------------------------------------------
+
+    def _run_intermediate_hooks(self, log, ctx, stage, img1, img2):
+        hooks = self._capture_due(ctx.step)
+        if not hooks:
+            return
+
+        module = ctx.model.module
+        if self._points is None:
+            self._points = convert.activation_points(module)
+        names = [n for n in self._points if any(h.wants(n) for h in hooks)]
+        if not names:
+            return
+
+        img1, img2 = img1.to(ctx.device), img2.to(ctx.device)
+        args = dict(stage.model_args)
+
+        def forward():
+            ctx.model.apply(img1, img2, train=False, **args)
+
+        for hook, named in capture_activations(forward, module, self._points,
+                                               names, hooks):
+            hook.on_intermediates(log, ctx, named)
 
     def _set_fmtargs(self, ctx, stage, epoch=None):
         self.writer.set_fmtargs(dict(
@@ -479,6 +554,17 @@ class SummaryInspector(Inspector):
                  meta, result, loss):
         """``img1``..``valid`` are the step's device tensors."""
         final = result.final()
+        grads = result.aux.get("grads")
+        for h in self.hooks:
+            if h.active and h.needs_grads and grads is not None:
+                h.on_grads(log, ctx, grads)
+
+        # the first microbatch only: ctx.step stays for a whole group
+        # under a stage's accumulation
+        if self.batch_index == 0:
+            self._run_intermediate_hooks(log, ctx, stage, img1, img2)
+        self.batch_index += 1
+
         active = [m for m in self.metrics if ctx.step % m.frequency == 0]
         if active:
             ctx_m = metrics.MetricContext(
@@ -494,6 +580,7 @@ class SummaryInspector(Inspector):
                          meta, ctx.step)
 
     def on_step_start(self, log, ctx, stage, epoch, i):
+        self.batch_index = 0
         for m in self.metrics:
             m.reset()
 
@@ -507,9 +594,9 @@ class SummaryInspector(Inspector):
 
         due = [v for v in self.val_step
                if ctx.step > 0 and ctx.step % v.frequency == 0]
-        for val in due:
+        if due:
             self.flush()
-            val.run(log, ctx, self.writer, self.checkpoints, stage, epoch)
+        self._validate(log, ctx, due, stage, epoch)
 
     def flush(self):
         """Fetch every queued train metric in one copy, reduce each step's
@@ -537,16 +624,14 @@ class SummaryInspector(Inspector):
         self._set_fmtargs(ctx, stage, epoch)
 
     def on_epoch(self, log, ctx, stage, epoch):
-        for val in self.val_epoch:
-            val.run(log, ctx, self.writer, self.checkpoints, stage, epoch)
+        self._validate(log, ctx, self.val_epoch, stage, epoch)
         self.writer.flush()
 
     def on_stage_start(self, log, ctx, stage):
         self._set_fmtargs(ctx, stage)
 
     def on_stage(self, log, ctx, stage):
-        for val in self.val_stage:
-            val.run(log, ctx, self.writer, self.checkpoints, stage, None)
+        self._validate(log, ctx, self.val_stage, stage, None)
         self.writer.flush()
 
     def close(self):

@@ -30,8 +30,12 @@ for _i in range(256):
         _c = (_c >> 1) ^ (_POLY if _c & 1 else 0)
     _TABLE[_i] = _c
 
+_TABLE_LIST = _TABLE.tolist()
+
 # chunk length of the vectorized CRC: the data is cut into chunks of this
-# many bytes whose register states advance together
+# many bytes whose register states advance together; shorter data (a
+# scalar's record) takes the byte loop, which costs microseconds where the
+# chunked form's shift operators cost milliseconds
 _CHUNK = 1024
 
 
@@ -89,8 +93,11 @@ def _raw_crc(data):
 def crc32c(data):
     """CRC32C of ``data`` (initial register and final xor 0xffffffff)."""
     data = bytes(data)
-    if not data:
-        return 0
+    if len(data) <= _CHUNK:
+        crc = 0xFFFFFFFF
+        for byte in data:
+            crc = _TABLE_LIST[(crc ^ byte) & 0xFF] ^ (crc >> 8)
+        return crc ^ 0xFFFFFFFF
     init = _gf2_times(_shift_operator(len(data)), 0xFFFFFFFF)
     return (_raw_crc(data) ^ init) ^ 0xFFFFFFFF
 

@@ -6,7 +6,9 @@ Counterpart of ``raft_meets_dicl_tpu/main.py``; ``train``, ``evaluate``,
     python -m raft_meets_dicl_tpu_torch.main train -d strategy.yaml \
         -m model.yaml [-i inspect.yaml] [-e env.yaml] -o runs \
         [--limit-steps N] [--wire-format f32|bf16|u8] [--loader-procs N] \
-        [--checkpoint FILE | --resume FILE|auto] [--device cpu]
+        [--nonfinite raise|skip|rollback] [--accumulate K] \
+        [--detect-anomaly] [--checkpoint FILE | --resume FILE|auto] \
+        [--device cpu]
     python -m raft_meets_dicl_tpu_torch.main train -c run/config.json \
         --reproduce [-e env.yaml] -o runs [--device cpu]
     python -m raft_meets_dicl_tpu_torch.main evaluate -d data.yaml \
@@ -74,12 +76,23 @@ def build_parser():
                        help="resume training from checkpoint (full state); "
                             "'auto' picks the newest valid checkpoint of "
                             "the model under --output")
+    train.add_argument("--nonfinite", choices=["raise", "skip", "rollback"],
+                       help="non-finite step recovery policy: raise (abort, "
+                            "default), skip (drop the poisoned optimizer "
+                            "update on the device and continue), rollback "
+                            "(skip, then restore the last valid checkpoint "
+                            "when trips persist). Also: RMD_NONFINITE or "
+                            "the env config's 'nonfinite' section")
     train.add_argument("--start-stage", type=int,
                        help="start with specified stage and skip previous")
     train.add_argument("--start-epoch", type=int,
                        help="start with specified epoch and skip previous")
     train.add_argument("--reproduce", action="store_true",
                        help="use seeds from config")
+    train.add_argument("--detect-anomaly", action="store_true",
+                       help="enable torch.autograd.set_detect_anomaly for "
+                            "the run (also: the env config's "
+                            "'jax: debug-nans')")
     train.add_argument("--suffix", "--sfx", dest="suffix",
                        help="suffix for output directory")
     train.add_argument("--comment", dest="comment",
@@ -96,6 +109,12 @@ def build_parser():
                             "processes (also: RMD_LOADER_PROCS; the env "
                             "config's 'loader.procs') [default: the "
                             "loader's num_workers]")
+    train.add_argument("--accumulate", type=int, metavar="K",
+                       help="in-step gradient accumulation: K microbatches "
+                            "of the stage's batch size per optimizer step, "
+                            "one microbatch's activations alive at a time "
+                            "(also: RMD_ACCUMULATE or the env config's "
+                            "'parallel' section)")
 
     eval_ = subp.add_parser("evaluate", aliases=["e", "eval"],
                             formatter_class=fmtcls, help="evaluate model")

@@ -281,7 +281,9 @@ class Checkpoint:
     def apply(self, module=None, optimizer=None, scaler=None,
               lr_sched_inst=(), lr_sched_epoch=()):
         """Restore state into ``module`` (strict ``load_state_dict``) and
-        ``optimizer`` in place, and the schedulers; pass None to skip a
+        ``optimizer`` (a ``torch.optim`` optimizer or the trainer's
+        ``spec.GradientTransform``, which also takes the gradient
+        accumulation) in place, and the schedulers; pass None to skip a
         slot. A JAX-format checkpoint is mapped through ``convert`` first.
         Returns the scaler state (a copy of the stored one when ``scaler``
         is given, else ``scaler``)."""
@@ -296,8 +298,10 @@ class Checkpoint:
                 model_state = convert.jax_variables_to_state_dict(
                     model_state, convert.rules_for(module))
                 if optimizer is not None:
+                    # a GradientTransform holds the torch optimizer
                     opt_state = convert.optax_state_to_torch(
-                        opt_state, module, optimizer)
+                        opt_state, module,
+                        getattr(optimizer, "optimizer", optimizer))
             if module is not None:
                 module.load_state_dict(model_state, strict=True)
             if optimizer is not None:

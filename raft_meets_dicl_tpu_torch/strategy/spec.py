@@ -18,6 +18,13 @@ parameters, gradient accumulate/clip/scaler), built on ``torch.optim``:
   ported as they stand (``torch.optim.lr_scheduler.OneCycleLR`` counts
   its steps differently); the trainer writes the current rate into the
   optimizer before every update;
+- a stage's ``gradient.accumulate: k`` is the JAX ``optax.MultiSteps``
+  wrapper: each update call adds its gradient to a running mean (MultiSteps'
+  Welford form, ``acc += (g - acc) / (n + 1)``, not a sum over k, so the
+  rounding is JAX's), and every k-th call clips the mean and applies the
+  optimizer to it; the calls between change no parameter. The count of
+  calls lives on the host, the mean on the device; both go into the
+  optimizer's checkpoint entry (``GradientTransform.state_dict``);
 - the AMP ``GradScaler`` spec is kept for config parity and does
   nothing: the bf16 policy needs no loss scaling.
 """
@@ -105,26 +112,29 @@ class OptimizerSpec:
     def get_config(self):
         return {"type": self.type, "parameters": self.parameters}
 
-    def build_optimizer(self, params):
+    def build_optimizer(self, params, capturable=False):
         """The core optimizer over ``params``. Returns ``(optimizer,
         base_lr)``; the trainer overwrites the rate before every update,
-        so host-side schedulers drive it."""
+        so host-side schedulers drive it. ``capturable`` keeps Adam's step
+        count on the parameters' device (the skip guard restores it there
+        without a host sync; ``parallel.train``)."""
         p = dict(self.parameters)
         lr = float(p.pop("lr", 1e-3))
+        extra = {"capturable": True} if capturable else {}
 
         if self.type == "adam":
             b1, b2 = p.pop("betas", (0.9, 0.999))
             opt = torch.optim.Adam(
                 params, lr=lr, betas=(float(b1), float(b2)),
                 eps=float(p.pop("eps", 1e-8)),
-                weight_decay=float(p.pop("weight_decay", 0.0)))
+                weight_decay=float(p.pop("weight_decay", 0.0)), **extra)
 
         elif self.type == "adam-w":
             b1, b2 = p.pop("betas", (0.9, 0.999))
             opt = torch.optim.AdamW(
                 params, lr=lr, betas=(float(b1), float(b2)),
                 eps=float(p.pop("eps", 1e-8)),
-                weight_decay=float(p.pop("weight_decay", 1e-2)))
+                weight_decay=float(p.pop("weight_decay", 1e-2)), **extra)
 
         elif self.type == "sgd":
             opt = torch.optim.SGD(
@@ -140,34 +150,41 @@ class OptimizerSpec:
 
         return opt, lr
 
-    def build(self, params, gradient=None):
-        """Full per-stage update: clip → optimizer core.
+    def build(self, params, gradient=None, capturable=False):
+        """Full per-stage update: clip → optimizer core (→ MultiSteps).
 
         Returns ``(tx, base_lr)``; ``gradient`` is the stage GradientSpec.
         """
-        if gradient is not None and gradient.accumulate > 1:
-            raise NotImplementedError(
-                "gradient accumulation is not ported yet (ROADMAP slice 2 "
-                "item 8, in-step accumulation)")
         params = list(params)
-        opt, lr = self.build_optimizer(params)
+        opt, lr = self.build_optimizer(params, capturable)
         clip = gradient.clip if gradient is not None else None
-        return GradientTransform(params, opt, clip), lr
+        accumulate = gradient.accumulate if gradient is not None else 1
+        return GradientTransform(params, opt, clip, accumulate), lr
 
 
 class GradientTransform:
-    """Clip, then the optimizer: the port's form of the JAX optax chain.
+    """Clip, then the optimizer: the port's form of the JAX optax chain,
+    with ``accumulate > 1`` wrapped as ``optax.MultiSteps``.
 
     ``update(lr)`` reads the parameters' ``.grad`` (a missing gradient
-    counts as zeros, as JAX's gradient tree has every leaf), clips it in
-    place and applies the optimizer at ``lr``. Nothing is read back to the
-    host.
+    counts as zeros, as JAX's gradient tree has every leaf). Without
+    accumulation it clips them in place and applies the optimizer at
+    ``lr``. With it, the gradient goes into the running mean, and every
+    ``accumulate``-th call writes the mean into ``.grad``, clips and
+    applies it, and zeroes the mean. Nothing is read back to the host.
     """
 
-    def __init__(self, params, optimizer, clip=None):
+    def __init__(self, params, optimizer, clip=None, accumulate=1):
         self.params = params
         self.optimizer = optimizer
         self.clip = clip
+        self.accumulate = int(accumulate)
+        self.reset_accumulation()
+
+    def reset_accumulation(self):
+        """No partial mean: the next call starts a new group of k."""
+        self.mini_step = 0
+        self.acc = None
 
     def grads(self):
         for p in self.params:
@@ -176,15 +193,103 @@ class GradientTransform:
         return [p.grad for p in self.params]
 
     def update(self, lr):
+        """Returns whether the parameters were updated (False on the calls
+        that only accumulate)."""
         grads = self.grads()
+        if self.accumulate > 1:
+            if self.acc is None:
+                self.acc = [torch.zeros_like(g) for g in grads]
+            # optax.MultiSteps' running mean: acc + (g - acc) / (n + 1)
+            delta = torch._foreach_sub(grads, self.acc)
+            torch._foreach_div_(delta, float(self.mini_step + 1))
+            torch._foreach_add_(self.acc, delta)
+            self.mini_step += 1
+            if self.mini_step < self.accumulate:
+                return False
+            torch._foreach_copy_(grads, self.acc)
+            torch._foreach_zero_(self.acc)
+            self.mini_step = 0
+
         if self.clip is not None:
             self.clip.apply(grads)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.step()
+        return True
 
     def zero_grad(self):
         self.optimizer.zero_grad(set_to_none=True)
+
+    def reset(self):
+        """A fresh optimizer state and no partial mean (a rollback whose
+        checkpoint's optimizer state does not fit)."""
+        self.optimizer.state.clear()
+        self.reset_accumulation()
+
+    # -- the skip guard's copy of the state (parallel.train) -------------
+
+    def _state_tensors(self):
+        """``(slot, tensor)`` of every tensor an update changes: the
+        parameters, each one's optimizer state, the running mean."""
+        out = [(("param", i), p.detach()) for i, p in enumerate(self.params)]
+        for i, p in enumerate(self.params):
+            for key, value in self.optimizer.state.get(p, {}).items():
+                if torch.is_tensor(value):
+                    out.append((("state", i, key), value))
+        for i, a in enumerate(self.acc or ()):
+            out.append((("acc", i), a))
+        return out
+
+    def snapshot(self):
+        """Copies of everything an update changes (see :meth:`restore`)."""
+        slots = self._state_tensors()
+        copies = [torch.empty_like(t) for _, t in slots]
+        if copies:
+            torch._foreach_copy_(copies, [t for _, t in slots])
+        return {slot: c for (slot, _), c in zip(slots, copies)}
+
+    @torch.no_grad()
+    def restore(self, keep, snapshot):
+        """Where ``keep`` (a 0-d bool tensor on the device) is false, put
+        the :meth:`snapshot` back, bit for bit, without a host sync. State
+        the update created (the optimizer's first step) goes back to zeros,
+        the state the optimizer would create: Adam's zero moments and step
+        0, SGD's momentum, whose first update from zeros is the gradient.
+        The host's count of accumulated calls is not restored."""
+        for slot, t in self._state_tensors():
+            old = snapshot.get(slot)
+            if old is None:
+                old = torch.zeros_like(t)
+            torch.where(keep, t, old, out=t)
+
+    # -- checkpoints -------------------------------------------------------
+
+    def state_dict(self):
+        """The optimizer's ``state_dict()``; with accumulation also
+        ``accumulate``: the count of calls in the current group and the
+        running mean, by parameter index."""
+        state = self.optimizer.state_dict()
+        if self.accumulate > 1:
+            state["accumulate"] = {
+                "mini_step": self.mini_step,
+                "acc": {i: a for i, a in enumerate(self.acc or ())},
+            }
+        return state
+
+    def load_state_dict(self, state):
+        state = dict(state)
+        accum = state.pop("accumulate", None)
+        self.optimizer.load_state_dict(state)
+        self.reset_accumulation()
+        if accum is None or not int(accum["mini_step"]):
+            return
+        if self.accumulate <= 1:
+            raise ValueError(
+                "the checkpoint holds a partial gradient accumulation, and "
+                "this stage does not accumulate")
+        self.mini_step = int(accum["mini_step"])
+        self.acc = [accum["acc"][i].to(p.device, p.dtype)
+                    for i, p in enumerate(self.params)]
 
 
 class ClipGradient:

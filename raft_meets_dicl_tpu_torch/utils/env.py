@@ -30,6 +30,19 @@
 - ``RMD_LOADER_PROCS``: decode processes of the training loader (0 or
   unset: the stage's or environment's ``num_workers``; ``--loader-procs``
   wins).
+- ``RMD_NONFINITE``: the non-finite step policy of ``main train``
+  (``raise``, ``skip``, ``rollback``; ``--nonfinite`` wins, then this,
+  then the environment config's ``nonfinite`` section). A policy name
+  here takes the policy's default limits.
+- ``RMD_ACCUMULATE``: in-step gradient accumulation of ``main train``,
+  microbatches per optimizer step (``--accumulate`` wins, then this, then
+  the environment config's ``parallel.accumulate``).
+- ``RMD_FINITE_CHECK_EVERY``: steps between two reads of the pending
+  steps' scalars (loss, finite flag, skip count, norms) by the trainer
+  (default 10; 1 reads every step, which makes the non-finite policies'
+  count of consecutive trips exact).
+- ``RMD_FAULT`` / ``RMD_FAULT_STATE``: fault injection
+  (``testing.faults``).
 """
 
 import os

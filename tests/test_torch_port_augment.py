@@ -308,6 +308,20 @@ _RUNNER = {
         import sys
         from raft_meets_dicl_tpu.main import main
         from raft_meets_dicl_tpu.strategy import training
+        import jax
+        from raft_meets_dicl_tpu.models import model as jmodel
+        init = jmodel.Model.init
+
+        def shaped_init(self, rng, img1, img2, **kwargs):
+            # zeros of the variables' shapes: the run's --checkpoint or
+            # --resume replaces every leaf, and an eager init takes tens
+            # of seconds
+            shapes = jax.eval_shape(
+                lambda r: init(self, r, img1, img2, **kwargs), rng)
+            return jax.tree.map(lambda s: jax.numpy.zeros(s.shape, s.dtype),
+                                shapes)
+
+        jmodel.Model.init = shaped_init
         {record}
         original = training.TrainingContext.run_instance
 

@@ -27,10 +27,7 @@ pytestmark = pytest.mark.torch_port
 
 # strategy configs the port loads but cannot build yet, by the ROADMAP
 # item each waits on
-WAITING = {
-    "dicl-example.yaml": "slice 2 item 8, in-step accumulation",
-    "stage/dicl-sintel.yaml": "slice 2 item 8, in-step accumulation",
-}
+WAITING = {}
 
 
 def _norm(cfg):

@@ -36,7 +36,7 @@ from raft_meets_dicl_tpu_torch import models as tmodels
 from raft_meets_dicl_tpu_torch import strategy as tstrategy
 from raft_meets_dicl_tpu_torch.ops import sample, windowed
 from test_torch_port_cfg_corpus import _build
-from test_torch_port_train import _write_tree
+from test_torch_port_train import _one_thread, _write_tree
 
 # the modules (each package's ``cmd`` binds ``train`` to the function)
 jtrain_cmd = importlib.import_module("raft_meets_dicl_tpu.cmd.train")
@@ -52,8 +52,7 @@ FULL = sorted((ROOT / "cfg" / "full" / "baseline").glob("*.json"))
 ENV_REFUSED = {
     "device-aug": "slice 7 item 5",
     "fastboot": "slice 7 item 3",
-    "resilient": "slice 2 item 7",
-    "spmd": "slice 2 items 10 and 8",
+    "spmd": "slice 2 item 10",
 }
 
 # full configs the port refuses, by the ROADMAP item named: their models
@@ -184,10 +183,12 @@ def test_part_flags_override_the_config(tmp_path):
 
 def _train(tmp_path, *extra):
     # the default inspector: its image summary at step 0 reads the images
-    # decoded on the host
-    return tmain.main([
-        "train", "-o", str(tmp_path / "runs"), "--limit-steps", "2",
-        "--device", "cpu", *extra])
+    # decoded on the host. One torch thread: the suite's parallel workers
+    # would oversubscribe the cores
+    with _one_thread():
+        return tmain.main([
+            "train", "-o", str(tmp_path / "runs"), "--limit-steps", "2",
+            "--device", "cpu", *extra])
 
 
 def test_rerun_from_config_json(tmp_path, monkeypatch):

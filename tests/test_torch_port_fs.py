@@ -36,6 +36,7 @@ from raft_meets_dicl_tpu_torch import main as port_main
 from raft_meets_dicl_tpu_torch.data import io as tio
 from raft_meets_dicl_tpu_torch.models.impls import raft_fs as traft_fs
 from raft_meets_dicl_tpu_torch.utils import env
+from test_torch_port_train import _one_thread
 
 pytestmark = pytest.mark.torch_port
 
@@ -423,7 +424,7 @@ def _port_step(cfg, variables, batch):
         tm.model.module.parameters(),
         strategy.spec.GradientSpec.from_config(GRADIENT))
     tstep = parallel.make_train_step(tm.model, tm.loss, with_grads=True)
-    with torch.backends.mkldnn.flags(enabled=False):
+    with torch.backends.mkldnn.flags(enabled=False), _one_thread():
         _, taux = tstep(parallel.TrainState(tm.model, ttx), LR,
                         *(torch.from_numpy(x) for x in batch))
     state = {k: v.numpy() for k, v in tm.model.module.state_dict().items()}
@@ -533,10 +534,11 @@ def test_raft_fs_train_command_on_cpu(tmp_path, monkeypatch):
             "gradient": GRADIENT,
             "loader": {"num_workers": 0},
         }]}))
-    tctx = port_main.main([
-        "train", "-d", str(root / "strategy.yaml"),
-        "-m", str(root / "model.json"), "-o", str(tmp_path / "runs"),
-        "--limit-steps", "2", "--device", "cpu"])
+    with _one_thread():  # the suite's workers would oversubscribe the cores
+        tctx = port_main.main([
+            "train", "-d", str(root / "strategy.yaml"),
+            "-m", str(root / "model.json"), "-o", str(tmp_path / "runs"),
+            "--limit-steps", "2", "--device", "cpu"])
     assert tctx.step == 2 and len(tctx.history) == 2
     assert all(np.isfinite(h["loss"]) and h["finite"] for h in tctx.history)
     assert tctx.model.frozen_batchnorm

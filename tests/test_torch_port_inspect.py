@@ -45,6 +45,7 @@ from raft_meets_dicl_tpu_torch import visual as tvisual
 from raft_meets_dicl_tpu_torch.inspect import summary as tsummary
 from raft_meets_dicl_tpu_torch.inspect import writer as twriter
 from raft_meets_dicl_tpu_torch.strategy import checkpoint as tchk
+from test_torch_port_train import _one_thread
 
 pytestmark = pytest.mark.torch_port
 
@@ -211,8 +212,9 @@ def test_validation_step_matches_jax():
                                jax.tree.map(np.asarray, variables))
     step = tsummary.make_val_step(tspec.model, tspec.loss,
                                   loss_args=loss_args)
-    final, loss = step(*(torch.from_numpy(x)
-                         for x in (img1, img2, flow, valid)))
+    with _one_thread():
+        final, loss = step(*(torch.from_numpy(x)
+                             for x in (img1, img2, flow, valid)))
     assert np.abs(final.numpy() - np.asarray(jfinal)).max() <= F32_MAX_ABS_PX
     assert abs(float(loss) - float(jloss)) <= LOSS_REL * abs(float(jloss))
 
@@ -313,9 +315,10 @@ def test_inspect_configs_match_jax(name):
     expected = jinspect.load(path).get_config()
     assert json.loads(json.dumps(actual)) == json.loads(json.dumps(expected))
     hooked = tinspect.config.utils.config.load(path) | {
-        "hooks": [{"type": "activation-stats", "when": "training"}]}
-    with pytest.raises(NotImplementedError, match="hooks.*ROADMAP"):
-        tinspect.load(hooked)
+        "hooks": [{"type": "activation-stats",
+                   "modules": ["FeatureEncoderS3_0._Stem_0"]}]}
+    assert json.loads(json.dumps(tinspect.load(hooked).get_config())) == \
+        json.loads(json.dumps(jinspect.load(hooked).get_config()))
 
 
 # -- main train on both sides ------------------------------------------------------
@@ -389,6 +392,20 @@ _RUNNER = {
     "jax": """
         import glob, sys
         from raft_meets_dicl_tpu.main import main
+        import jax
+        from raft_meets_dicl_tpu.models import model as jmodel
+        init = jmodel.Model.init
+
+        def shaped_init(self, rng, img1, img2, **kwargs):
+            # zeros of the variables' shapes: the run's --checkpoint or
+            # --resume replaces every leaf, and an eager init takes tens
+            # of seconds
+            shapes = jax.eval_shape(
+                lambda r: init(self, r, img1, img2, **kwargs), rng)
+            return jax.tree.map(lambda s: jax.numpy.zeros(s.shape, s.dtype),
+                                shapes)
+
+        jmodel.Model.init = shaped_init
         for argv in {runs!r}:
             sys.argv = ["main.py"] + [
                 glob.glob(a[5:])[0] if a.startswith("glob:") else a
@@ -409,13 +426,15 @@ _RUNNER = {
 
 def _launch(side, root, runs):
     # one CPU device (the conftest's 8 virtual ones would put the JAX run
-    # on a data mesh), one thread, no compile caches or AOT programs on
-    # disk
+    # on a data mesh), one thread, no AOT programs; JAX's compile cache in
+    # the fixture's directory (stage 2 and the resumed run compile the
+    # programs stage 1 compiled: the cache hands them back)
     env = {**os.environ, "JAX_PLATFORMS": "cpu",
            "XLA_FLAGS": "--xla_cpu_multi_thread_eigen=false",
            "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1",
-           "RMD_NO_COMPILE_CACHE": "1", "RMD_AOT": "0",
+           "RMD_COMPILE_CACHE": str(root / "jax-cache"), "RMD_AOT": "0",
            "PYTHONPATH": str(ROOT)}
+    env.pop("RMD_NO_COMPILE_CACHE", None)
     return subprocess.Popen(
         [sys.executable, "-c",
          textwrap.dedent(_RUNNER[side]).format(runs=runs)],
@@ -565,9 +584,10 @@ def test_main_train_step_frequency_validation_on_cpu(tmp_path, frequency):
     cfg = tconfig.load(ROOT / "cfg" / "inspect" / "default-1k.yaml")
     cfg["validation"][0]["frequency"] = frequency
     tconfig.store(tmp_path / "inspect.yaml", cfg)
-    tctx = port_main.main(_args(tmp_path, tmp_path / "runs", "-i",
-                                str(tmp_path / "inspect.yaml"),
-                                "--limit-steps", "3"))
+    with _one_thread():
+        tctx = port_main.main(_args(tmp_path, tmp_path / "runs", "-i",
+                                    str(tmp_path / "inspect.yaml"),
+                                    "--limit-steps", "3"))
     assert tctx.step == 3
     files = sorted(p.name for p in tctx.checkpoints.path.glob("*.ckpt")) \
         if tctx.checkpoints.path.exists() else []
@@ -611,9 +631,12 @@ def test_main_train_mode_best_loads_an_earlier_best_on_cpu(tmp_path,
     monkeypatch.setattr(summary.SummaryInspector, "on_stage_start", record)
     # stage 1's two epochs of two steps, then stage 2's first step
     caplog.set_level("INFO", logger="train")
-    tctx = port_main.main(_args(tmp_path, tmp_path / "runs", "-i",
-                                str(tmp_path / "inspect.yaml"),
-                                "--limit-steps", "5"))
+    # one torch thread: the suite's parallel workers would oversubscribe
+    # the cores
+    with _one_thread():
+        tctx = port_main.main(_args(tmp_path, tmp_path / "runs", "-i",
+                                    str(tmp_path / "inspect.yaml"),
+                                    "--limit-steps", "5"))
     best = tctx.checkpoints.get_best(stage=0)
     last = tctx.checkpoints.get_latest(stage=0)
     assert (best.idx_epoch, best.idx_step) == (0, 2)

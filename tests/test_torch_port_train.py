@@ -512,16 +512,14 @@ def test_optimizer_update_matches_optax(opt):
 
 def test_train_step_refuses_unported_options():
     tm = tmodels.load(_cfg())
-    # (wire formats are ported: tests/test_torch_port_wire.py)
-    for kwargs in ({"mesh": object()},
-                   {"augment": object()}, {"accumulate": 2},
-                   {"nonfinite": "skip"}):
+    # (wire formats are ported: tests/test_torch_port_wire.py; the skip
+    # guard and both accumulations: tests/test_torch_port_recovery.py and
+    # tests/test_torch_port_accumulate.py)
+    for kwargs in ({"mesh": object()}, {"augment": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             parallel.make_train_step(tm.model, tm.loss, **kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tspec.OptimizerSpec.from_config(OPTIMIZER).build(
-            [torch.nn.Parameter(torch.zeros(2))],
-            tspec.GradientSpec(accumulate=2))
+    with pytest.raises(ValueError, match="guard"):
+        parallel.make_train_step(tm.model, tm.loss, nonfinite="rollback")
 
 
 # -- the train command ----------------------------------------------------------------
@@ -575,12 +573,15 @@ def test_train_command_on_cpu(tmp_path):
     seeds = ROOT / "cfg" / "seeds" / "fixed.yaml"
     histories = []
     for run in ("a", "b"):
-        tctx = port_main.main([
-            "train", "-d", str(tmp_path / "data" / "strategy.yaml"),
-            "-m", str(tmp_path / "data" / "model.yaml"),
-            "-o", str(tmp_path / "runs"), "--suffix", run,
-            "-s", str(seeds), "--reproduce",
-            "--limit-steps", "2", "--device", "cpu"])
+        # one torch thread: the suite's parallel workers would
+        # oversubscribe the cores
+        with _one_thread():
+            tctx = port_main.main([
+                "train", "-d", str(tmp_path / "data" / "strategy.yaml"),
+                "-m", str(tmp_path / "data" / "model.yaml"),
+                "-o", str(tmp_path / "runs"), "--suffix", run,
+                "-s", str(seeds), "--reproduce",
+                "--limit-steps", "2", "--device", "cpu"])
         histories.append(tctx.history)
         assert tctx.step == 2 and len(tctx.history) == 2
         assert all(np.isfinite(h["loss"]) and h["finite"]

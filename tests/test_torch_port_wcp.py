@@ -36,6 +36,7 @@ from raft_meets_dicl_tpu.ops import pallas as jpallas
 from raft_meets_dicl_tpu.ops.pool import avg_pool2d as javg_pool2d
 from raft_meets_dicl_tpu_torch.ops import pool as tpool
 from raft_meets_dicl_tpu_torch.ops import windowed as twindowed
+from test_torch_port_train import _one_thread
 
 pytestmark = pytest.mark.torch_port
 
@@ -151,7 +152,8 @@ def test_plain_wcp_matches_jax_reference(dtype):
                      jnp.asarray(f1), tuple(jnp.asarray(lvl)
                                             for lvl in levels_f32))
     jdf1, jdf2 = vjp(jnp.asarray(dout))
-    actual.backward(torch.from_numpy(dout))
+    with _one_thread():
+        actual.backward(torch.from_numpy(dout))
     scales = _plain_with_scale(f1, levels_f32, torch.from_numpy(coords),
                                torch.from_numpy(dout))
     bf16 = dtype == "bfloat16"
@@ -186,8 +188,9 @@ def test_plain_wcp_matches_pallas_interpret(band):
     df1, df2 = jpallas._wcp_bwd_interpret(jf1, jlevels, jc,
                                           jnp.asarray(dout), RADIUS,
                                           band=band)
-    grads = torch.autograd.grad(actual, [tf1, *tlevels],
-                                torch.from_numpy(dout))
+    with _one_thread():
+        grads = torch.autograd.grad(actual, [tf1, *tlevels],
+                                    torch.from_numpy(dout))
     scales = _plain_with_scale(f1, levels_f32, tc, torch.from_numpy(dout))
     _check(grads[0], df1, scales[0])
     assert len(df2) == LEVELS
@@ -275,8 +278,11 @@ def test_plain_df2_matches_pallas_interpret_in_both_tile_regimes(dtype, c,
     bf16 = dtype == "bfloat16"
     tf1 = torch.from_numpy(f1).to(getattr(torch, dtype)).requires_grad_(True)
     tlevels = [x.detach().requires_grad_(True) for x in tlevels]
-    out = twindowed.windowed_corr_pyramid_reference(tf1, tlevels, tc, RADIUS)
-    grads = torch.autograd.grad(out, [tf1, *tlevels], torch.from_numpy(dout))
+    with _one_thread():
+        out = twindowed.windowed_corr_pyramid_reference(tf1, tlevels, tc,
+                                                        RADIUS)
+        grads = torch.autograd.grad(out, [tf1, *tlevels],
+                                    torch.from_numpy(dout))
     levels_f32 = [x.detach().float().numpy() for x in tlevels]
     fwd_scale = _plain_with_scale(f1, levels_f32, tc)
     scales = _plain_with_scale(f1, levels_f32, tc, torch.from_numpy(dout))
