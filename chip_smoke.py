@@ -246,7 +246,26 @@ the card and fails (non-zero exit, no result line) on any fault:
    on ``FeatureEncoderS3_0._Stem_0`` and both anomaly detectors for 4
    steps: tags at every step, no debug checkpoint, each hook's ms alone
    on the last batch; ``--detect-anomaly``: 2 steps, their ms, the
-   kernels launched under anomaly mode.
+   kernels launched under anomaly mode;
+26. dicl: the rest of the DICL family at the shipped configs' widths.
+   ``raft+dicl/ml`` (``cfg/model/raft+dicl-ml.yaml``): one float32 forward
+   at 1x64x96, 12 iterations, card vs CPU from one seeded init, TF32 off,
+   48 sampler and 1 combine launches, the same forward with TF32 outside
+   the bound; 4 requests at 368x496 through ``ServeSession`` (bucket
+   384x512, the config's padding); ``main train`` of stage 0 of
+   ``cfg/full/baseline/raft+dicl-ml.s0-chairs.json`` as it ships (its
+   augmentations, b10 at 496x368, live batch norm, AdamW, one-cycle,
+   clip) on a synthetic FlyingChairs-shaped tree (512x384 PPM pairs,
+   ``.flo`` flows, ``train_val.txt``): every loss finite, per step 48
+   sampler launches forward, 48 more recomputing the checkpointed
+   correlation modules in the backward, 48 backward, and 1 + 1 combine.
+   ``raft+dicl/sl`` the same, shorter (12 + 12 + 12 sampler launches a
+   step), plus the card-vs-CPU forward for every ``corr-type`` and the
+   ``dicl`` and ``rfpm-raft`` encoder families. ``dicl/baseline``: ``main
+   train`` of stage 0 of ``dicl-baseline.chairs-things-sintel-kitti.json``
+   (b16 at 384x256, live batch norm), which launches no kernel of the
+   port (its JAX module reaches no Pallas kernel). Median step ms,
+   pairs/s and peak device memory printed for each run.
 
 Each phase prints one JSON line (and a ``timing`` line); every phase runs
 even after another failed, and a failure ends the run with exit code 1
@@ -405,6 +424,14 @@ SW_CASES = (
      "shape": (10, 12, 16, 32, 12, 16)},
     {"name": "serve 448x1024 level 3", "dtype": "float32",
      "shape": (4, 56, 128, 32, 56, 128)},
+    # raft+dicl/ml training at b10 496x368: f2 at levels 1 and 3 of the
+    # pyramid (H/16, H/64), the centres on the H/8 grid; sl's level
+    {"name": "ml train level 1", "dtype": "float32",
+     "shape": (10, 23, 31, 32, 46, 62)},
+    {"name": "ml train level 3", "dtype": "float32",
+     "shape": (10, 6, 8, 32, 46, 62)},
+    {"name": "sl train", "dtype": "float32",
+     "shape": (10, 46, 62, 32, 46, 62)},
     {"name": "ragged", "dtype": "float32", "shape": (2, 13, 17, 5, 6, 7)},
     {"name": "ragged", "dtype": "bfloat16", "shape": (2, 13, 17, 40, 6, 7)},
 )
@@ -1645,6 +1672,235 @@ def phase_ctf_train(card):
          matmul_tf32=torch.backends.cuda.matmul.allow_tf32, card=card,
          **readings)
     return readings["launches"]
+
+
+# -- the DICL family: raft+dicl/ml, raft+dicl/sl, dicl/baseline -------------
+
+DICL_FULL = {
+    "ml": ROOT / "cfg" / "full" / "baseline" / "raft+dicl-ml.s0-chairs.json",
+    "sl": ROOT / "cfg" / "full" / "baseline" / "raft+dicl-sl.s0-chairs.json",
+    "dicl": ROOT / "cfg" / "full" / "baseline"
+    / "dicl-baseline.chairs-things-sintel-kitti.json",
+}
+DICL_ML_CFG = ROOT / "cfg" / "model" / "raft+dicl-ml.yaml"
+DICL_SL_CFG = ROOT / "cfg" / "model" / "raft+dicl-sl.yaml"
+# the card-vs-CPU forwards: 12 iterations at a small size, the final flow
+# within the ctf model phase's bound (relative to the largest |flow|)
+DICL_MODEL_SHAPE = (1, 64, 96)
+DICL_MODEL_REL = CTF_MODEL_REL
+# sampler launches per forward: 4 levels (ml), 1 (sl) per iteration
+DICL_ML_WINDOWS = 4 * 12
+DICL_SL_WINDOWS = 12
+# raft+dicl/sl variants of the card-vs-CPU forward: every corr-type and
+# the encoder families beside the shipped raft
+DICL_SL_VARIANTS = (
+    {"corr-type": "dicl"}, {"corr-type": "dicl-1x1"},
+    {"corr-type": "dicl-emb"}, {"corr-type": "dot"},
+    {"encoder-type": "dicl", "context-type": "dicl"},
+    {"encoder-type": "rfpm-raft", "context-type": "rfpm-raft"},
+)
+DICL_SERVE_REQUESTS = 4
+# FlyingChairs' frame size; main train steps per run (one epoch of the
+# tree, one pair a spare)
+CHAIRS_SHAPE = (384, 512)
+DICL_TRAIN_STEPS = {"ml": 5, "sl": 4, "dicl": 4}
+
+
+def _dicl_forward(cfg, seed, expected):
+    """One float32 forward of the model config ``cfg`` at DICL_MODEL_SHAPE,
+    card vs CPU from one seeded init, TF32 off, and the same forward on the
+    card with TF32; returns the readings and the problems."""
+    from raft_meets_dicl_tpu_torch import evaluation, models
+
+    set_tf32(False)
+    rng = np.random.default_rng(seed)
+    b, h, w = DICL_MODEL_SHAPE
+    img1, img2 = (torch.from_numpy(rng.uniform(-1, 1, (b, h, w, 3))
+                                   .astype(np.float32)) for _ in range(2))
+    cpu_spec = models.load(cfg)
+    cpu_spec.model.init(torch.Generator().manual_seed(0), device="cpu")
+    gpu_spec = models.load(cfg)
+    gpu_spec.model.module.load_state_dict(cpu_spec.model.module.state_dict())
+    gpu_spec.model.module.to("cuda").eval()
+    gpu_step = evaluation.make_eval_fn(gpu_spec.model)
+    x1, x2 = img1.cuda(), img2.cuda()
+
+    _zero_counts()
+    _, flow_gpu = gpu_step(x1, x2)
+    torch.cuda.synchronize()
+    launches = _counts()
+    set_tf32(True)
+    _, flow_tf32 = gpu_step(x1, x2)
+    set_tf32(False)
+    t0 = time.perf_counter()
+    _, flow_cpu = evaluation.make_eval_fn(cpu_spec.model)(img1, img2)
+    cpu_s = time.perf_counter() - t0
+
+    scale = max(flow_cpu.abs().max().item(), 1.0)
+    rel = (flow_gpu.cpu() - flow_cpu).abs().max().item() / scale
+    rel_tf32 = (flow_tf32.cpu() - flow_cpu).abs().max().item() / scale
+    problems = []
+    if launches != expected:
+        problems.append(f"launched {launches}, expected {expected}")
+    if not bool(torch.isfinite(flow_gpu).all()):
+        problems.append("non-finite flow on the card")
+    if not rel <= DICL_MODEL_REL:
+        problems.append(f"card vs CPU {rel} > {DICL_MODEL_REL} of the "
+                        "largest flow")
+    if not rel_tf32 > DICL_MODEL_REL:
+        problems.append(f"the TF32 forward stays inside the bound "
+                        f"({rel_tf32})")
+    return dict(rel_diff=rel, tf32_rel_diff=rel_tf32, max_abs_flow_px=scale,
+                launches=launches, cpu_forward_s=round(cpu_s, 3)), problems
+
+
+def _dicl_serve(model_cfg, bucket, expected_per_batch):
+    """``DICL_SERVE_REQUESTS`` requests at 368x496 through ``ServeSession``
+    (seed-0 weights) at batch 2; returns the readings and the problems."""
+    from raft_meets_dicl_tpu_torch import models, serve
+    from raft_meets_dicl_tpu_torch.serve import loadgen
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    session = serve.ServeSession(models.load(model_cfg), bucket, batch_size=2,
+                                 device="cuda")
+    _zero_counts()
+    session.warm_pool()
+    scheduler = serve.Scheduler(session, max_wait_ms=50).start()
+    try:
+        report = loadgen.run_open_loop(scheduler, [(368, 496)],
+                                       requests=DICL_SERVE_REQUESTS,
+                                       rate_hz=20, seed=7)
+    finally:
+        scheduler.stop()
+    torch.cuda.synchronize()
+    launches = _counts()
+    dispatched = scheduler.batches + 1   # the warm-up batch
+    expected = {k: v * dispatched for k, v in expected_per_batch.items()}
+    problems = []
+    if report["completed"] != DICL_SERVE_REQUESTS or report["errors"] \
+            or report["rejected"]:
+        problems.append(f"completed {report['completed']}, errors "
+                        f"{report['errors']}, rejected {report['rejected']}")
+    if not all(np.isfinite(r.flow).all() and r.flow.shape == (368, 496, 2)
+               for r in report["results"]):
+        problems.append("a non-finite or misshapen flow")
+    if launches != expected:
+        problems.append(f"launched {launches}, expected {expected}")
+    readings = {k: report[k] for k in ("requests", "completed", "p50_ms",
+                                       "p99_ms", "pairs_per_sec")}
+    return dict(bucket=bucket, batches=scheduler.batches, launches=launches,
+                **readings), problems
+
+
+def _write_chairs_tree(root, pairs):
+    """A FlyingChairs-shaped tree: ``pairs`` pairs ``{seq:05d}_img1.ppm`` /
+    ``_img2.ppm`` at 384x512, the second a smooth random texture shifted
+    by (3, -2) px, their ``{seq:05d}_flow.flo``, and ``train_val.txt``
+    marking every pair for training."""
+    import cv2
+
+    from raft_meets_dicl_tpu_torch.data import io
+
+    h, w = CHAIRS_SHAPE
+    dx, dy = 3, -2
+    rng = np.random.default_rng(8)
+    data = root / "data"
+    data.mkdir(parents=True)
+    flow = np.broadcast_to(np.array([dx, dy], np.float32), (h, w, 2))
+    for seq in range(1, pairs + 1):
+        base = cv2.resize(rng.integers(0, 256, (h // 4, w // 4, 3), np.uint8),
+                          (w, h), interpolation=cv2.INTER_CUBIC)
+        cv2.imwrite(str(data / f"{seq:05d}_img1.ppm"), base)
+        cv2.imwrite(str(data / f"{seq:05d}_img2.ppm"),
+                    np.roll(base, (dy, dx), axis=(0, 1)))
+        io.write_flow_mb(data / f"{seq:05d}_flow.flo", flow)
+    (root / "train_val.txt").write_text("1\n" * pairs)
+
+
+def _dicl_train(name, tmp):
+    """``main train`` of stage 0 of the shipped full config ``name`` (its
+    model, augmentations, batch, optimizer, schedule and clip as they
+    ship) over a FlyingChairs-shaped tree, without validation, for
+    DICL_TRAIN_STEPS[name] steps; returns the readings and the problems."""
+    config = json.loads(DICL_FULL[name].read_text())
+    stage = dict(config["strategy"]["stages"][0])
+    batch = stage["data"]["batch-size"]
+    steps = DICL_TRAIN_STEPS[name]
+    root = tmp / f"chairs-{name}"
+    _write_chairs_tree(root, batch * steps + 1)
+    stage["data"] = json.loads(json.dumps(stage["data"]))
+    stage["data"]["epochs"] = 1
+    spec = stage["data"]["source"]["source"]["spec"]
+    spec["path"] = str(root / "data")
+    spec["split"]["file"] = str(root / "train_val.txt")
+    stage.pop("validation", None)
+    strategy = tmp / f"{name}-strategy.json"
+    strategy.write_text(json.dumps({"mode": "continuous", "stages": [stage]}))
+    model = tmp / f"{name}-model.json"
+    model.write_text(json.dumps(config["model"]))
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tctx, wall_s, peak, launches = _run_train(strategy, model,
+                                              tmp / f"runs-{name}", steps)
+    run, problems = _run_readings(tctx, batch, steps, wall_s)
+    crop = next(a["size"] for a in stage["data"]["source"]["augmentations"]
+                if a["type"] == "crop")
+    return dict(config=DICL_FULL[name].name, batch=batch, crop=crop, **run,
+                max_memory_allocated=peak, launches=launches,
+                wall_s=round(wall_s, 3)), problems
+
+
+def phase_dicl(card):
+    """raft+dicl/ml, raft+dicl/sl and dicl/baseline at the shipped widths:
+    card-vs-CPU forwards, serving and ``main train`` of their s0 stages."""
+    from raft_meets_dicl_tpu_torch import utils
+
+    problems, out, paths = [], {}, {}
+
+    def record(key, result):
+        readings, found = result
+        out[key] = readings
+        problems.extend(f"{key}: {p}" for p in found)
+        paths[f"dicl_{key}"] = readings["launches"]
+
+    ml = _expect(sample_window=DICL_ML_WINDOWS, convex_combine_8x=1)
+    record("ml_model", _dicl_forward(utils.config.load(DICL_ML_CFG), 11, ml))
+    record("ml_serve", _dicl_serve(DICL_ML_CFG, "384x512", ml))
+    sl_base = utils.config.load(DICL_SL_CFG)
+    for variant in DICL_SL_VARIANTS:
+        cfg = json.loads(json.dumps(sl_base))
+        cfg["model"]["parameters"].update(variant)
+        windows = 0 if variant.get("corr-type") == "dot" else DICL_SL_WINDOWS
+        key = "sl_model_" + "_".join(variant.values())
+        record(key, _dicl_forward(cfg, 12, _expect(
+            sample_window=windows, convex_combine_8x=1)))
+    sl = _expect(sample_window=DICL_SL_WINDOWS, convex_combine_8x=1)
+    record("sl_serve", _dicl_serve(DICL_SL_CFG, "368x496", sl))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for name, windows in (("ml", DICL_ML_WINDOWS),
+                              ("sl", DICL_SL_WINDOWS), ("dicl", 0)):
+            steps = DICL_TRAIN_STEPS[name]
+            # the backward recomputes each checkpointed correlation module,
+            # its windows included
+            expected = _expect(
+                sample_window=2 * windows * steps,
+                sample_window_bwd=windows * steps,
+                convex_combine_8x=steps if windows else 0,
+                convex_combine_8x_bwd=steps if windows else 0)
+            readings, found = _dicl_train(name, tmp)
+            if readings["launches"] != expected:
+                found.append(f"launched {readings['launches']}, expected "
+                             f"{expected}")
+            record(f"{name}_train", (readings, found))
+
+    emit(phase="dicl", card=card, **out)
+    if problems:
+        raise AssertionError("dicl phase: " + "; ".join(problems))
+    return paths
 
 
 # -- raft/fs ----------------------------------------------------------------
@@ -4611,6 +4867,7 @@ def kernels_line(results):
         **results["phase_evaluate"],
         **results["phase_wire_env"],
         **results["phase_recovery"],
+        **results["phase_dicl"],
     }
 
     def launches(name):
@@ -4864,7 +5121,7 @@ def main():
               phase_fs_serve, phase_fs_train_step, phase_fs_train,
               phase_fs_train_all_levels, phase_lookup_kernels, phase_quant,
               phase_lifecycle, phase_augmented_train, phase_evaluate,
-              phase_wire_env, phase_recovery)
+              phase_wire_env, phase_recovery, phase_dicl)
     for phase in phases:
         run(phase)
     if failed:

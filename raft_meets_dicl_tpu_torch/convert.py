@@ -1,13 +1,16 @@
 """Weight bridge: the JAX package's variables -> this package's
-``state_dict``, for ``raft/baseline``, ``raft/fs`` and the ``raft+dicl``
-coarse-to-fine models.
+``state_dict``, for ``raft/baseline``, ``raft/fs``, the ``raft+dicl``
+coarse-to-fine models, ``raft+dicl/ml``, ``raft+dicl/sl`` and
+``dicl/baseline`` / ``dicl/64to8``.
 
 Input is the JAX variables tree as nested mappings of numpy arrays (for
 example ``jax.tree.map(np.asarray, model.init(...))``). Flax module paths
 map onto the reference torch module names by the same rules as
-``scripts/chkpt_convert.py`` (its ``_raft_rules`` and ``_ctf_rules`` with
-``_pyramid_rules``, ``_cmod_rules``, ``_update_block_rules``), kept as an
-own copy here: conv kernels HWIO -> OIHW, transposed-conv kernels (flax
+``scripts/chkpt_convert.py`` (its ``_raft_rules``, ``_ctf_rules`` with
+``_pyramid_rules``, ``_cmod_rules``, ``_update_block_rules``, and
+``_dicl_rules`` with ``_dicl_block_rules``), kept as an own copy here and
+extended to the flax paths of the ml and sl modules and of every encoder
+family: conv kernels HWIO -> OIHW, transposed-conv kernels (flax
 ``ConvTranspose``) to torch's (in, out, kh, kw) with the spatial flip that
 makes torch's k4/s2/p1 geometry equal flax's 'SAME', batch-norm
 ``scale``/``bias`` -> ``weight``/``bias``, ``batch_stats`` ``mean``/``var``
@@ -29,7 +32,13 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from .models.common.encoders.dicl import FeatureEncoderGa
+from .models.common.encoders.raft import FeatureEncoderPyramid
+from .models.common.encoders.rfpm import FeatureEncoderRfpm
+from .models.impls.dicl import DiclModule
 from .models.impls.raft_dicl_ctf import RaftPlusDiclCtfModule
+from .models.impls.raft_dicl_ml import RaftPlusDiclMlModule
+from .models.impls.raft_dicl_sl import RaftPlusDiclModule
 from .models.impls.raft_fs import RaftFsModule
 
 
@@ -127,41 +136,181 @@ def _pyramid_rules(flax_enc, torch_enc, levels):
     return rules
 
 
-def _cmod_rules(flax_path, torch_path):
-    """Rules for one DICL CorrelationModule (MatchingNet hourglass + DAP)."""
+def _mnet_rules(flax_mnet, torch_mnet, blocks=4, transposed=True):
+    """Rules for one MatchingNet (``blocks`` conv blocks, the transposed
+    block, the output conv) or MatchingNet1x1 (three blocks, no transposed
+    one)."""
     rules = {}
-    mnet = f"{flax_path}.MatchingNet_0"
-    for i in range(4):
-        rules[f"{mnet}.ConvBlock_{i}.Conv_0"] = f"{torch_path}.mnet.{i}.0"
-        rules[f"{mnet}.ConvBlock_{i}.Norm2d_0.BatchNorm_0"] = \
-            f"{torch_path}.mnet.{i}.1"
-    rules[f"{mnet}.ConvBlockTransposed_0.ConvTranspose_0"] = \
-        f"{torch_path}.mnet.4.0"
-    rules[f"{mnet}.ConvBlockTransposed_0.Norm2d_0.BatchNorm_0"] = \
-        f"{torch_path}.mnet.4.1"
-    rules[f"{mnet}.Conv_0"] = f"{torch_path}.mnet.5"
+    for i in range(blocks):
+        rules[f"{flax_mnet}.ConvBlock_{i}.Conv_0"] = f"{torch_mnet}.{i}.0"
+        rules[f"{flax_mnet}.ConvBlock_{i}.Norm2d_0.BatchNorm_0"] = \
+            f"{torch_mnet}.{i}.1"
+    out = blocks
+    if transposed:
+        rules[f"{flax_mnet}.ConvBlockTransposed_0.ConvTranspose_0"] = \
+            f"{torch_mnet}.{blocks}.0"
+        rules[f"{flax_mnet}.ConvBlockTransposed_0.Norm2d_0.BatchNorm_0"] = \
+            f"{torch_mnet}.{blocks}.1"
+        out += 1
+    rules[f"{flax_mnet}.Conv_0"] = f"{torch_mnet}.{out}"
+    return rules
+
+
+def _cmod_rules(flax_path, torch_path, cmod_type="dicl"):
+    """Rules for one correlation module of ``corr.make_cmod``: the
+    MatchingNet hourglass (``dicl``, ``dicl-emb`` with its pair embedding
+    ``emb``) or the 1x1 net (``dicl-1x1``), and the DAP (every type)."""
+    rules = {}
+    if cmod_type in ("dicl", "dicl-emb"):
+        rules |= _mnet_rules(f"{flax_path}.MatchingNet_0",
+                             f"{torch_path}.mnet")
+    elif cmod_type == "dicl-1x1":
+        rules |= _mnet_rules(f"{flax_path}.MatchingNet1x1_0",
+                             f"{torch_path}.mnet", blocks=3, transposed=False)
+    if cmod_type == "dicl-emb":
+        for i in range(3):
+            rules[f"{flax_path}.PairEmbedding_0.Conv_{i}"] = \
+                f"{torch_path}.emb.{i}"
     rules[f"{flax_path}.DisplacementAwareProjection_0.Conv_0"] = \
         f"{torch_path}.dap.conv1"
     return rules
 
 
-def ctf_rules(levels, share_dicl, share_rnn, upsample_hidden):
+def _basic_conv_rules(flax_block, torch_block, transposed=False):
+    """A JAX ``ConvBlock`` / ``ConvBlockTransposed`` -> the DICL-Flow
+    ``BasicConv`` (``conv``, ``bn``): ``_dicl_block_rules``."""
+    conv = "ConvTranspose_0" if transposed else "Conv_0"
+    return {f"{flax_block}.{conv}": f"{torch_block}.conv",
+            f"{flax_block}.Norm2d_0.BatchNorm_0": f"{torch_block}.bn"}
+
+
+def _ga_block_rules(flax_block, torch_block, transposed):
+    first = "ConvTranspose_0" if transposed else "Conv_0"
+    second = "Conv_0" if transposed else "Conv_1"
+    return {
+        f"{flax_block}.{first}": f"{torch_block}.conv1.conv",
+        f"{flax_block}.{second}": f"{torch_block}.conv2.conv",
+        f"{flax_block}.Norm2d_0.BatchNorm_0": f"{torch_block}.conv2.bn",
+    }
+
+
+def _ga_encoder_rules(flax_enc, torch_enc, depth, out_levels):
+    """Rules for one GA-Net ``FeatureEncoderGa``, by creation order as
+    ``_dicl_rules`` has them for p26: stem ConvBlock_0..2, the down ladder
+    ConvBlock_3.. (``conv{i}a``), the first up ladder
+    GaConv2xBlockTransposed_0.. (``deconv{i}a``), the second down ladder
+    GaConv2xBlock_* (``conv{i}b``), the final up ladder
+    GaConv2xBlockTransposed_{depth}.. (``deconv{i}b``) with its heads, the
+    ConvBlocks after the ladder (``outconv{i}``)."""
+    rules = {}
+    for i in range(3):
+        rules |= _basic_conv_rules(f"{flax_enc}.ConvBlock_{i}",
+                                   f"{torch_enc}.conv0.{i}")
+    for i in range(1, depth + 1):
+        rules |= _basic_conv_rules(f"{flax_enc}.ConvBlock_{i + 2}",
+                                   f"{torch_enc}.conv{i}a")
+    for n, i in enumerate(range(depth, 0, -1)):
+        rules |= _ga_block_rules(f"{flax_enc}.GaConv2xBlockTransposed_{n}",
+                                 f"{torch_enc}.deconv{i}a", True)
+    for i in range(1, depth + 1):
+        rules |= _ga_block_rules(f"{flax_enc}.GaConv2xBlock_{i - 1}",
+                                 f"{torch_enc}.conv{i}b", False)
+    n_heads = 0
+    for n, i in enumerate(range(depth, min(out_levels), -1)):
+        rules |= _ga_block_rules(
+            f"{flax_enc}.GaConv2xBlockTransposed_{depth + n}",
+            f"{torch_enc}.deconv{i}b", True)
+        if i - 1 in out_levels:
+            rules |= _basic_conv_rules(
+                f"{flax_enc}.ConvBlock_{depth + 3 + n_heads}",
+                f"{torch_enc}.outconv{i}")
+            n_heads += 1
+    return rules
+
+
+def _rfpm_rules(flax_enc, torch_enc, levels):
+    """Rules for one ``FeatureEncoderRfpm``: the stem, per stage the left,
+    center and right block pairs (ResidualBlock_* in that order, the
+    center's first an RfpmRfdBlock_0 on strided stages) and the two repair
+    masks, the heads RfpmOutputNet_* from stage 3 on."""
+    rules = {f"{flax_enc}.Conv_0": f"{torch_enc}.conv1",
+             f"{flax_enc}.Norm2d_0.BatchNorm_0": f"{torch_enc}.norm1"}
+    for stage in range(1, levels + 3):
+        flax_stage = f"{flax_enc}._Stage_{stage - 1}"
+        tgt = f"{torch_enc}.stage{stage}"
+        blocks = [f"{flax_stage}.ResidualBlock_{i}" for i in range(6)]
+        if stage > 1:
+            blocks = (blocks[:2] + [f"{flax_stage}.RfpmRfdBlock_0"]
+                      + blocks[2:5])
+        for j, side in enumerate(("left", "center", "right")):
+            for k in range(2):
+                rules |= _residual_rules(blocks[2 * j + k],
+                                         f"{tgt}.{side}.{k}")
+        for j, side in enumerate(("c", "r")):
+            for k in range(2):
+                rules[f"{flax_stage}.RfpmRepairMaskNet_{j}.Conv_{k}"] = \
+                    f"{tgt}.repair_{side}.conv{k + 1}"
+        if stage >= 3:
+            head = f"{flax_enc}.RfpmOutputNet_{stage - 3}"
+            rules[f"{head}.Conv_0"] = f"{torch_enc}.out{stage}.conv1"
+            rules[f"{head}.Norm2d_0.BatchNorm_0"] = \
+                f"{torch_enc}.out{stage}.norm1"
+            rules[f"{head}.Conv_1"] = f"{torch_enc}.out{stage}.conv2"
+    return rules
+
+
+def _s3_encoder_rules(flax_enc, torch_enc):
+    rules = {f"{flax_enc}._Stem_0.{frag}": tgt
+             for frag, tgt in _stem_rules(torch_enc).items()}
+    rules[f"{flax_enc}.Conv_0"] = f"{torch_enc}.conv2"
+    return rules
+
+
+def _encoder_rules(named):
+    """Rules for the encoders ``named`` ((torch name, module) in the JAX
+    module's creation order), by family: each flax module is its class
+    name (the port's encoder classes carry the JAX names) with a suffix
+    counted per class."""
+    rules, seen = {}, {}
+    for torch_enc, module in named:
+        cls = type(module).__name__
+        flax_enc = f"{cls}_{seen.get(cls, 0)}"
+        seen[cls] = seen.get(cls, 0) + 1
+        if isinstance(module, FeatureEncoderGa):
+            rules |= _ga_encoder_rules(flax_enc, torch_enc, module.depth,
+                                       module.out_levels)
+        elif isinstance(module, FeatureEncoderRfpm):
+            rules |= _rfpm_rules(flax_enc, torch_enc, module.levels)
+        elif isinstance(module, FeatureEncoderPyramid):
+            rules |= _pyramid_rules(flax_enc, torch_enc, module.levels)
+        else:  # the s3 encoder, the pooled pyramid
+            rules |= _s3_encoder_rules(flax_enc, torch_enc)
+    return rules
+
+
+def ctf_rules(levels, share_dicl, share_rnn, upsample_hidden, fnet=None,
+              cnet=None, cmod_type="dicl"):
     """flax module path -> torch module path for raft+dicl/ctf-l*.
 
     Flax submodule suffixes follow creation order, coarse to fine over the
     level ids ``levels + 2 .. 3``: suffix i is torch ``corr_{lvl}`` /
-    ``update_block_{lvl}`` of the i-th level id.
+    ``update_block_{lvl}`` of the i-th level id. ``fnet`` and ``cnet``
+    (the torch encoders) give their families; None is the raft pyramid.
     """
     level_ids = tuple(range(levels + 2, 2, -1))
     rules = {}
 
-    rules |= _pyramid_rules("FeatureEncoderPyramid_0", "fnet", levels)
-    rules |= _pyramid_rules("FeatureEncoderPyramid_1", "cnet", levels)
+    if fnet is None or cnet is None:
+        rules |= _pyramid_rules("FeatureEncoderPyramid_0", "fnet", levels)
+        rules |= _pyramid_rules("FeatureEncoderPyramid_1", "cnet", levels)
+    else:
+        rules |= _encoder_rules((("fnet", fnet), ("cnet", cnet)))
 
     for i, lvl in enumerate(level_ids):
         suffix = 0 if share_dicl else i
         rules |= _cmod_rules(f"CorrelationModule_{suffix}",
-                             "corr" if share_dicl else f"corr_{lvl}")
+                             "corr" if share_dicl else f"corr_{lvl}",
+                             cmod_type)
         # corr-reg-type softargmax+dap: the readout's own DAP
         rules[f"SoftArgMaxFlowRegressionWithDap_{suffix}."
               "DisplacementAwareProjection_0.Conv_0"] = \
@@ -187,11 +336,109 @@ def ctf_rules(levels, share_dicl, share_rnn, upsample_hidden):
     return rules
 
 
+def _readout_rules(flax_reg, torch_reg):
+    """A corr-module readout's own DAP (``softargmax+dap``)."""
+    return {f"{flax_reg}.DisplacementAwareProjection_0.Conv_0":
+            f"{torch_reg}.dap.conv1"}
+
+
+def _recurrent_rules():
+    """The update block and the Up8 head of the ml and sl modules."""
+    return {**_update_block_rules("BasicUpdateBlock_0", "update_block"),
+            "Up8Network_0.Conv_0": "upnet.conv1",
+            "Up8Network_0.Conv_1": "upnet.conv2"}
+
+
+def sl_rules(module):
+    """flax module path -> torch module path for a raft+dicl/sl
+    ``module``: its encoders by family, ``CorrelationModule_0`` (``corr``)
+    by corr type, the readout's DAP (``flow_reg``), the update block and
+    the Up8 head."""
+    rules = _encoder_rules((("fnet", module.fnet), ("cnet", module.cnet)))
+    rules |= _cmod_rules("CorrelationModule_0", "corr", module.corr_type)
+    rules |= _readout_rules("SoftArgMaxFlowRegressionWithDap_0", "flow_reg")
+    return rules | _recurrent_rules()
+
+
+def _level_encoder_rules(flax_enc, torch_enc, levels):
+    rules = {}
+    for lvl in range(levels):
+        head = f"{flax_enc}._OutputNet_{lvl}"
+        rules[f"{head}.Conv_0"] = f"{torch_enc}.out{lvl}.conv1"
+        rules[f"{head}.Norm2d_0.BatchNorm_0"] = \
+            f"{torch_enc}.out{lvl}.norm1"
+        rules[f"{head}.Conv_1"] = f"{torch_enc}.out{lvl}.conv2"
+        if lvl:
+            rules |= _residual_rules(f"{flax_enc}.ResidualBlock_{lvl - 1}",
+                                     f"{torch_enc}.res{lvl}")
+    return rules
+
+
+def ml_rules(module):
+    """flax module path -> torch module path for a raft+dicl/ml
+    ``module``: the s3 base and context encoders, the frame-1 stack and
+    frame-2 pyramid (``raft-cnn``), ``MlCorrelationModule_0`` (``corr``:
+    ``MatchingNet_{i}`` per level, or one with ``share-dicl``; the DAPs),
+    the raft readout (``corr_reg``), the update block and the Up8 head."""
+    levels = module.corr_levels
+    rules = _encoder_rules((("fnet", module.fnet), ("cnet", module.cnet)))
+    if module.encoder_type == "raft-cnn":
+        rules |= _level_encoder_rules("StackEncoder_0", "stack", levels)
+        rules |= _level_encoder_rules("PyramidEncoder_0", "pyramid", levels)
+
+    corr = "MlCorrelationModule_0"
+    for i in range(1 if module.share_dicl else levels):
+        name = "" if module.share_dicl else f"_{i}"
+        rules |= _mnet_rules(f"{corr}.MatchingNet_{i}", f"corr.mnet{name}")
+        rules[f"{corr}.DisplacementAwareProjection_{i}.Conv_0"] = \
+            f"corr.dap{name}.conv1"
+    rules[f"{corr}.Conv_0"] = "corr.dap_full"
+    for i in range(levels):
+        rules[f"SoftArgMaxFlowRegression_0.DisplacementAwareProjection_{i}"
+              ".Conv_0"] = f"corr_reg.dap.{i}.conv1"
+    return rules | _recurrent_rules()
+
+
+def dicl_rules(levels=(6, 5, 4, 3, 2)):
+    """flax module path -> torch module path for dicl/baseline (and, with
+    ``levels`` 6..3, dicl/64to8): ``_dicl_rules`` of
+    ``scripts/chkpt_convert.py`` over the ladder's levels. FlowLevel_i is
+    the i-th level, coarse to fine."""
+    from .models.impls.dicl import _CONTEXT_PLANS
+
+    rules = _ga_encoder_rules("FeatureEncoderGa_0", "feature", 6,
+                              tuple(lvl - 1 for lvl in sorted(levels)))
+    for idx, lvl in enumerate(sorted(levels, reverse=True)):
+        fl = f"FlowLevel_{idx}"
+        mnet = f"matching{lvl}.match"
+        for i in range(4):
+            rules |= _basic_conv_rules(f"{fl}.MatchingNet_0.ConvBlock_{i}",
+                                       f"{mnet}.{i}")
+        rules |= _basic_conv_rules(f"{fl}.MatchingNet_0.ConvBlockTransposed_0",
+                                   f"{mnet}.4", transposed=True)
+        rules[f"{fl}.MatchingNet_0.Conv_0"] = f"{mnet}.5"
+        rules[f"{fl}.DisplacementAwareProjection_0.Conv_0"] = f"dap{lvl}"
+
+        n_ctx = len(_CONTEXT_PLANS[min(max(lvl, 3), 6)])
+        for i in range(n_ctx):
+            rules |= _basic_conv_rules(f"{fl}.CtfContextNet_0.ConvBlock_{i}",
+                                       f"context_net{lvl}.{i}")
+        rules[f"{fl}.CtfContextNet_0.Conv_0"] = f"context_net{lvl}.{n_ctx}"
+    return rules
+
+
 def rules_for(module):
     """The rules for this package's model ``module``."""
     if isinstance(module, RaftPlusDiclCtfModule):
         return ctf_rules(module.levels, module.share_dicl, module.share_rnn,
-                         module.upsample_hidden)
+                         module.upsample_hidden, module.fnet, module.cnet,
+                         module.corr_type)
+    if isinstance(module, RaftPlusDiclModule):
+        return sl_rules(module)
+    if isinstance(module, RaftPlusDiclMlModule):
+        return ml_rules(module)
+    if isinstance(module, DiclModule):
+        return dicl_rules(module.levels)
     if isinstance(module, RaftFsModule):
         return fs_rules()
     return raft_rules(module.corr_levels)
@@ -375,6 +622,11 @@ def activation_points(module):
         raise NotImplementedError(
             "activation hooks of the raft+dicl coarse-to-fine models are "
             "not ported yet (ROADMAP slice 2 item 7's rest)")
+    if isinstance(module, (RaftPlusDiclMlModule, RaftPlusDiclModule,
+                           DiclModule)):
+        raise NotImplementedError(
+            "activation hooks of raft+dicl/ml, raft+dicl/sl and the dicl "
+            "models are not ported yet (ROADMAP slice 2 item 7's rest)")
     mods = dict(module.named_modules())
     points = {"__call__": ("", "output")}
     for flax_enc, torch_enc in (("FeatureEncoderS3_0", "fnet"),

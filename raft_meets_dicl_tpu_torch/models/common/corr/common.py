@@ -10,13 +10,42 @@ feeds the JAX package's telemetry (not ported, ROADMAP slice 7).
 
 import torch
 import torch.nn as nn
+import torch.utils.checkpoint
 
 from ....ops.corr import window_delta
 from ....ops.sample import sample_window_fused
 from ..blocks.dicl import DisplacementAwareProjection
+from ..norm import frozen_running_stats
 
 # the JAX name of the DICL window lookup: here always the kernel pair
 sample_window_fast = sample_window_fused
+
+
+def checkpointed(module, fn, *tensors):
+    """``fn(*tensors)`` (a call of ``module``) with its activations dropped
+    after the forward and recomputed in the backward, when autograd
+    records; else a plain call. The JAX recurrent steps keep only the cost
+    of each iteration (``nn.remat`` with ``save_only_these_names
+    ('corr_features')``): a DICL train step at the shipped sizes keeps
+    6-7 GB of MatchingNet activations per call otherwise, 48 calls a
+    ``raft+dicl/ml`` step. The recompute leaves live batch-norm running
+    statistics as the one forward left them (``frozen_running_stats``)
+    and, on the card, launches the window sampler's forward again."""
+    if not torch.is_grad_enabled():
+        return fn(*tensors)
+    calls = []
+
+    def run(*args):
+        calls.append(None)
+        if len(calls) == 1:
+            return fn(*args)
+        with frozen_running_stats(module):
+            return fn(*args)
+
+    # the cost modules draw no random numbers
+    return torch.utils.checkpoint.checkpoint(run, *tensors,
+                                             use_reentrant=False,
+                                             preserve_rng_state=False)
 
 
 def soft_argmax_flow(cost, radius, temperature=1.0):

@@ -25,13 +25,15 @@ class CorrelationModule(nn.Module):
     policy) is the MatchingNet's compute dtype: f1 and the window are cast
     to it before the first conv; the cost and the DAP stay float32."""
 
+    mnet_type = MatchingNet
+
     def __init__(self, feature_dim, radius, dap_init="identity",
                  norm_type="batch", mnet_scale=1, dtype=None):
         super().__init__()
         self.radius = radius
         self.compute_dtype = dtype
-        self.mnet = MatchingNet(feature_dim, norm_type=norm_type,
-                                scale=mnet_scale, dtype=dtype)
+        self.mnet = self.mnet_type(feature_dim, norm_type=norm_type,
+                                   scale=mnet_scale, dtype=dtype)
         self.dap = DisplacementAwareProjection(radius, init=dap_init)
 
     @property

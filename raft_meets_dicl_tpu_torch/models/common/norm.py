@@ -14,6 +14,8 @@ the batch statistics and updates the running ones as flax does: momentum
 where ``F.batch_norm(training=True)`` would store the unbiased one.
 """
 
+import contextlib
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -38,6 +40,10 @@ class BatchNorm2d(nn.BatchNorm2d):
         super().__init__(num_channels, eps=1e-5, momentum=0.1)
         self.compute_dtype = dtype
         self.splits = splits
+        # False while a checkpointed forward is recomputed in the backward
+        # (``frozen_running_stats``): it normalizes with the batch
+        # statistics as the first run did and leaves the running ones
+        self.update_stats = True
 
     def forward(self, x, train=False):
         xf = x.float()
@@ -59,12 +65,31 @@ class BatchNorm2d(nn.BatchNorm2d):
         # CPU's on an H100, PyTorch's kernel 1.2e-4
         y, _, _ = torch.native_batch_norm(x, self.weight, self.bias, None,
                                           None, True, 0.0, self.eps)
+        if not self.update_stats:
+            return y
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked.add_(1)
         return y
+
+
+@contextlib.contextmanager
+def frozen_running_stats(module):
+    """Within the block, the batch norms under ``module`` normalize with
+    their batch statistics but leave their running statistics alone: a
+    forward recomputed for the backward (``torch.utils.checkpoint``) then
+    leaves them as the one forward did, as the JAX package's functional
+    ``batch_stats`` under ``nn.remat`` do."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    for m in norms:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.update_stats = True
 
 
 class GroupNorm(nn.GroupNorm):
@@ -86,7 +111,12 @@ class InstanceNorm2d(nn.Module):
         self.compute_dtype = dtype
 
     def forward(self, x, train=False):
-        y = F.instance_norm(x.float(), eps=1e-5)
+        if x.shape[-2] * x.shape[-1] == 1:
+            # one element per map: its mean is itself and its variance 0,
+            # so the flax norm gives 0 (torch's function refuses the map)
+            y = torch.zeros_like(x, dtype=torch.float32)
+        else:
+            y = F.instance_norm(x.float(), eps=1e-5)
         return y.to(_out_dtype(x, self.compute_dtype))
 
 

@@ -44,19 +44,21 @@ def identity_1x1_init(weight):
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` with a compute dtype and a named initializer.
 
-    ``padding`` defaults to flax 'SAME' for stride 1 and odd kernels.
+    ``padding`` defaults to flax 'SAME' for stride 1 and odd kernels, at
+    any ``dilation``.
     ``dtype`` None computes in the promoted type of input and weight
     (float32), like flax ``dtype=None``. ``init`` is ``lecun`` (flax's
     default), ``kaiming`` or ``identity`` (1x1, square).
     """
 
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
-                 padding=None, dtype=None, init="lecun", bias=True):
+                 padding=None, dtype=None, init="lecun", bias=True,
+                 dilation=1):
         ks = (kernel_size,) * 2 if isinstance(kernel_size, int) else tuple(kernel_size)
         if padding is None:
-            padding = tuple(k // 2 for k in ks)
+            padding = tuple(dilation * (k // 2) for k in ks)
         super().__init__(in_channels, out_channels, ks, stride, padding,
-                         bias=bias)
+                         dilation, bias=bias)
         self.compute_dtype = dtype
         self.init_kind = init
 
@@ -80,7 +82,7 @@ class Conv2d(nn.Conv2d):
                                                        self.weight.dtype)
         bias = None if self.bias is None else self.bias.to(dt)
         return F.conv2d(x.to(dt), weight.to(dt), bias, self.stride,
-                        self.padding)
+                        self.padding, self.dilation)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):

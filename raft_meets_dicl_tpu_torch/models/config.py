@@ -17,10 +17,6 @@ _LOSSES = {}
 # model types of the JAX package not ported yet, by the ROADMAP item that
 # brings each: loading one refuses naming it
 _LATER = {
-    **dict.fromkeys(("dicl/baseline", "dicl/64to8", "dicl/multiscale"),
-                    "slice 4 item 6, dicl/baseline"),
-    **dict.fromkeys(("raft+dicl/ml", "raft+dicl/sl"),
-                    "slice 4 item 5, raft+dicl/ml and raft+dicl/sl"),
     **dict.fromkeys(("raft/sl", "raft/sl-ctf-l2", "raft/sl-ctf-l3",
                      "raft/sl-ctf-l4"),
                     "slice 5, impls/raft_sl.py and raft_sl_ctf.py"),

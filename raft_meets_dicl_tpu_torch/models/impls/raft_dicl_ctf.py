@@ -98,6 +98,7 @@ class RaftPlusDiclCtfModule(nn.Module):
                  mixed_precision=False):
         super().__init__()
         self.levels = levels
+        self.corr_type = corr_type
         self.corr_radius = corr_radius
         self.hidden_dim = recurrent_channels
         self.share_dicl = share_dicl
@@ -117,24 +118,25 @@ class RaftPlusDiclCtfModule(nn.Module):
                 f"corr-type='{corr_type}'")
         self.compute_dtype = dt
 
+        # the dtype goes only where the policy asks for one, as in JAX
+        dt_kw = {"dtype": dt} if dt is not None else {}
         self.fnet = _PYRAMIDS[levels](encoder_type, output_dim=corr_channels,
                                       norm_type=encoder_norm, dropout=0,
-                                      dtype=dt)
+                                      **dt_kw)
         self.cnet = _PYRAMIDS[levels](
             context_type, output_dim=recurrent_channels + context_channels,
-            norm_type=context_norm, dropout=0, dtype=dt)
+            norm_type=context_norm, dropout=0, **dt_kw)
 
         def cmod():
             return corr_mod.make_cmod(
                 corr_type, corr_channels, radius=corr_radius,
-                dap_init=dap_init, norm_type=mnet_norm, dtype=dt,
+                dap_init=dap_init, norm_type=mnet_norm, **dt_kw,
                 **(corr_args or {}))
 
         def reg():
             return corr_mod.make_flow_regression(
                 corr_type, corr_reg_type, corr_radius, **(corr_reg_args or {}))
 
-        k2 = (2 * corr_radius + 1) ** 2
         if share_dicl:
             self.corr = cmod()
             self.flow_reg = reg()
@@ -143,9 +145,12 @@ class RaftPlusDiclCtfModule(nn.Module):
                 setattr(self, f"corr_{lvl}", cmod())
                 setattr(self, f"flow_reg_{lvl}", reg())
 
+        corr_planes = self._level("corr", self.level_ids[0],
+                                  share_dicl).output_dim
+
         def update():
-            return UpdateBlock(k2, recurrent_channels, context_channels,
-                               dtype=dt)
+            return UpdateBlock(corr_planes, recurrent_channels,
+                               context_channels, dtype=dt)
 
         def hup():
             return hsup.make_hidden_state_upsampler(upsample_hidden,

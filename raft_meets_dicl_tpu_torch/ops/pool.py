@@ -1,5 +1,7 @@
 """Window pooling for NHWC tensors (counterpart of
-``raft_meets_dicl_tpu/ops/pool.py::avg_pool2d``)."""
+``raft_meets_dicl_tpu/ops/pool.py``: ``avg_pool2d`` and ``max_pool2d``)."""
+
+import torch.nn.functional as F
 
 
 def avg_pool2d(x, window=2):
@@ -22,3 +24,11 @@ def avg_pool2d(x, window=2):
             part = x[..., i:ho:window, j:wo:window, :]
             total = part if total is None else total + part
     return total / (window * window)
+
+
+def max_pool2d(x, window=2, stride=None):
+    """Max pool over the H, W axes of a (B, H, W, C) tensor, 'VALID'
+    windows of ``window`` at ``stride`` (default ``window``). A maximum is
+    exact in any order, so this equals the JAX ``lax.reduce_window``."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride or window)
+    return y.permute(0, 2, 3, 1)

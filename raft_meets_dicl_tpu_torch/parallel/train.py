@@ -164,10 +164,11 @@ def make_train_step(model, loss_fn, mesh=None, loss_args=None,
             finite = torch.isfinite(final).all()
             count = state.nonfinite_count
             if guard:
-                # the applied update, or between MultiSteps updates the
-                # running mean (JAX's zero update times a poisoned mean
-                # is NaN there too)
-                ok = finite & _all_finite(change if applied else tx.acc)
+                # the update the optimizer proposed: with MultiSteps on
+                # every call, as JAX's zero update times a poisoned mean
+                # or rate is NaN between updates too
+                ok = finite & _all_finite(
+                    tx.proposed if torch.is_tensor(applied) else change)
                 tx.restore(ok, saved)
                 for b, old in zip(buffers, saved_buffers):
                     torch.where(ok, b, old, out=b)

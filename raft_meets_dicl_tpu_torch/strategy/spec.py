@@ -172,6 +172,16 @@ class GradientTransform:
     ``lr``. With it, the gradient goes into the running mean, and every
     ``accumulate``-th call writes the mean into ``.grad``, clips and
     applies it, and zeroes the mean. Nothing is read back to the host.
+
+    Under the skip guard (``parallel.make_train_step(nonfinite='skip')``,
+    whose :meth:`snapshot` moves it there) the count of the group lives on
+    the device, beside the running mean, so that a skipped call puts both
+    back, as JAX's ``where`` puts back ``MultiSteps``' ``mini_step``. The
+    host cannot then know which call closes a group: each call applies
+    the clipped mean to the parameters and the optimizer state, and keeps
+    the result only on the group's last call (optax's MultiSteps computes
+    both branches and selects, too). ``proposed`` is each parameter's
+    change before that selection, what the guard checks.
     """
 
     def __init__(self, params, optimizer, clip=None, accumulate=1):
@@ -194,8 +204,11 @@ class GradientTransform:
 
     def update(self, lr):
         """Returns whether the parameters were updated (False on the calls
-        that only accumulate)."""
+        that only accumulate; with the count on the device, a 0-d bool
+        tensor)."""
         grads = self.grads()
+        if self.accumulate > 1 and torch.is_tensor(self.mini_step):
+            return self._update_on_device(grads, lr)
         if self.accumulate > 1:
             if self.acc is None:
                 self.acc = [torch.zeros_like(g) for g in grads]
@@ -210,12 +223,42 @@ class GradientTransform:
             torch._foreach_zero_(self.acc)
             self.mini_step = 0
 
+        self._step(grads, lr)
+        return True
+
+    def _step(self, grads, lr):
         if self.clip is not None:
             self.clip.apply(grads)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.step()
-        return True
+
+    def _update_on_device(self, grads, lr):
+        """The MultiSteps call with the group's count a device tensor: the
+        running mean, then the clipped mean applied and kept only where
+        the count closes the group; the mean and the count go to zero
+        there and move on elsewhere."""
+        if self.acc is None:
+            self.acc = [torch.zeros_like(g) for g in grads]
+        count = self.mini_step
+        delta = torch._foreach_sub(grads, self.acc)
+        torch._foreach_div_(delta, (count + 1).to(grads[0].dtype))
+        torch._foreach_add_(self.acc, delta)
+        emit = count == self.accumulate - 1
+
+        before = self.snapshot()
+        torch._foreach_copy_(grads, self.acc)
+        self._step(grads, lr)
+        self.proposed = torch._foreach_sub(
+            [p.detach() for p in self.params],
+            [before[("param", i)] for i in range(len(self.params))])
+        # the parameters, the optimizer state, the mean and the count as
+        # they were where the group goes on
+        self.restore(emit, before)
+        for a in self.acc:
+            torch.where(emit, torch.zeros_like(a), a, out=a)
+        self.mini_step = torch.where(emit, torch.zeros_like(count), count + 1)
+        return emit
 
     def zero_grad(self):
         self.optimizer.zero_grad(set_to_none=True)
@@ -238,10 +281,18 @@ class GradientTransform:
                     out.append((("state", i, key), value))
         for i, a in enumerate(self.acc or ()):
             out.append((("acc", i), a))
+        if torch.is_tensor(self.mini_step):
+            out.append((("mini_step",), self.mini_step))
         return out
 
     def snapshot(self):
-        """Copies of everything an update changes (see :meth:`restore`)."""
+        """Copies of everything an update changes (see :meth:`restore`).
+        With accumulation the group's count moves to the device first, to
+        be restored with the rest."""
+        if self.accumulate > 1 and self.params \
+                and not torch.is_tensor(self.mini_step):
+            self.mini_step = torch.tensor(self.mini_step,
+                                          device=self.params[0].device)
         slots = self._state_tensors()
         copies = [torch.empty_like(t) for _, t in slots]
         if copies:
@@ -255,7 +306,8 @@ class GradientTransform:
         the update created (the optimizer's first step) goes back to zeros,
         the state the optimizer would create: Adam's zero moments and step
         0, SGD's momentum, whose first update from zeros is the gradient.
-        The host's count of accumulated calls is not restored."""
+        The count of accumulated calls is restored with the mean (it is
+        on the device once :meth:`snapshot` ran)."""
         for slot, t in self._state_tensors():
             old = snapshot.get(slot)
             if old is None:
@@ -271,7 +323,7 @@ class GradientTransform:
         state = self.optimizer.state_dict()
         if self.accumulate > 1:
             state["accumulate"] = {
-                "mini_step": self.mini_step,
+                "mini_step": int(self.mini_step),
                 "acc": {i: a for i, a in enumerate(self.acc or ())},
             }
         return state

@@ -17,6 +17,11 @@ numpy batch.
   between the calls loads into the port and finishes the update as JAX
   does, and the port's own ``RMDP1`` file written there resumes to the
   uninterrupted run bit for bit;
+- a stage's ``gradient.accumulate: 2`` under the skip guard with one
+  microbatch skipped in the middle of a group: the updates land on the
+  calls JAX's guarded ``optax.MultiSteps`` applies them on (the skip puts
+  the group's count back), the first equal to JAX's, and the run equal
+  bit for bit to the unguarded one that never saw the skipped batch;
 - the port's in-step 2 x 1 against its own one step of 2;
 - ``main train`` with a stage's ``gradient.accumulate: 2``: the step
   count moves every second batch, and no partial mean is left.
@@ -326,6 +331,77 @@ def test_stage_accumulation_matches_multisteps(variables, tmp_path):
             assert all(torch.equal(resumed[k], final[k]) for k in final)
         else:
             _check_state(expected, resumed, mean)
+
+
+# the rate of each call of a stage's accumulate-2 group under the skip
+# guard: the second call, the middle of the first group, at a NaN rate
+SKIP_RATES = (LR, float("nan"), LR, LR, LR)
+
+
+def test_skipped_microbatch_keeps_the_group_as_multisteps(variables, batch):
+    """A stage's ``gradient.accumulate: 2`` under the skip guard, with one
+    microbatch skipped in the middle of a group (a NaN rate): the step
+    index of every applied update and the parameters after it, against
+    JAX's guarded ``optax.MultiSteps`` on the same batches. The skip puts
+    back the group's count with the running mean (JAX's ``where`` over
+    ``mini_step``), so the skipped call does not close the group: the
+    updates land on the third and fifth calls, each the clipped mean of
+    the two microbatches around it that ran."""
+    gradient = dict(GRADIENT, accumulate=2)
+    rs = np.random.RandomState(5)
+    batches = [tuple(np.ascontiguousarray(x[i:i + 1]) for x in batch)
+               for i in rs.randint(0, batch[0].shape[0], len(SKIP_RATES))]
+
+    jm = jmodels.load(_cfg())
+    jm.model.on_stage(None, freeze_batchnorm=True)
+    jtx, _ = jspec.OptimizerSpec.from_config(OPTIMIZER).build(
+        jspec.GradientSpec.from_config(gradient))
+    jstep = jmake_train_step(jm.model, jm.loss, jtx, external_lr=True,
+                             with_grads=True, donate=False, nonfinite="skip")
+    jstate = JTrainState.create(jax.tree.map(jnp.asarray, variables), jtx)
+    jparams, jgrads = [_jax_state_dict(jstate.variables())], [None]
+    for lr, b in zip(SKIP_RATES, batches):
+        jstate, jaux = jstep(jstate, lr, *(jnp.asarray(x) for x in b))
+        jparams.append(_jax_state_dict(jstate.variables()))
+        jgrads.append(_grads(jaux["grads"]))
+
+    tm = port_model(variables, True)
+    tx = _port_tx(tm, gradient)
+    step = parallel.make_train_step(tm.model, tm.loss, nonfinite="skip")
+    state = parallel.TrainState(tm.model, tx)
+    tparams = [{k: v.clone() for k, v in tm.model.module.state_dict().items()}]
+    for lr, b in zip(SKIP_RATES, batches):
+        state, aux = _run(step, state, lr, b)
+        tparams.append({k: v.clone()
+                        for k, v in tm.model.module.state_dict().items()})
+    assert int(state.nonfinite_count) == int(jstate.nonfinite_count) == 1
+
+    def applied(history):
+        return [i for i in range(1, len(history))
+                if any(not np.array_equal(np.asarray(history[i][k]),
+                                          np.asarray(history[i - 1][k]))
+                       for k in history[i] if "running" not in k
+                       and not k.endswith("num_batches_tracked"))]
+
+    assert applied(jparams) == applied(tparams) == [3, 5]
+    # the first update against JAX's from the same start, bounded as
+    # ``_check_state`` bounds one update (the stem by the mean gradient of
+    # the group's two microbatches that ran)
+    mean = {k: (jgrads[1][k] + jgrads[3][k]) / 2 for k in jgrads[3]}
+    _check_state(jparams[3], tparams[3], mean)
+
+    # and the guarded run is, bit for bit, the unguarded run that never
+    # saw the skipped microbatch (its later updates amplify the first
+    # one's rounding through Adam, as any two lockstep updates do)
+    tm = port_model(variables, True)
+    tx = _port_tx(tm, gradient)
+    step = parallel.make_train_step(tm.model, tm.loss)
+    state = parallel.TrainState(tm.model, tx)
+    for call in (1, 3, 4, 5):
+        state, _ = _run(step, state, SKIP_RATES[call - 1], batches[call - 1])
+        if call in (3, 5):
+            assert all(torch.equal(v, tparams[call][k])
+                       for k, v in tm.model.module.state_dict().items())
 
 
 def test_stage_accumulation_in_main_train(tmp_path):

@@ -56,12 +56,8 @@ ENV_REFUSED = {
 }
 
 # full configs the port refuses, by the ROADMAP item named: their models
-# (slices 4 and 5)
+# (slice 5)
 FULL_REFUSED = {
-    "dicl-64to8.chairs-things-sintel-kitti": "slice 4 item 6",
-    "dicl-baseline.chairs-things-sintel-kitti": "slice 4 item 6",
-    "raft+dicl-ml.s0-chairs": "slice 4 item 5",
-    "raft+dicl-sl.s0-chairs": "slice 4 item 5",
     "raft+dicl-sl-ca.s0-chairs": "slice 5",
     "raft-cl.s0-chairs": "slice 5",
     "raft-sl.s0-chairs": "slice 5",

@@ -179,10 +179,25 @@ def test_model_configs_load_unchanged_in_both_packages(name):
     assert tspec.model.module.compute_dtype == torch.bfloat16
 
 
-def test_other_encoder_families_name_the_roadmap():
+@pytest.mark.parametrize("family", ["raft", "dicl", "raft-avgpool",
+                                    "raft-maxpool", "rfpm-raft"])
+def test_other_encoder_families_name_the_roadmap(family):
+    """Every encoder family of the JAX factory builds (ROADMAP slice 4 item
+    4 ported them; their parity with JAX is
+    ``tests/test_torch_port_dicl_family.py``): its s3 shape, where it has
+    one, and the p35 pyramid, at their output shapes. An unknown family
+    raises ``ValueError``, as a pooled family's s3 shape does."""
     from raft_meets_dicl_tpu_torch.models.common import encoders
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        encoders.make_encoder_s3("dicl", 256, "instance", 0.0)
+    img = torch.zeros((1, 3, 64, 64))
+    if family in ("raft-avgpool", "raft-maxpool"):
+        with pytest.raises(ValueError, match="pyramid"):
+            encoders.make_encoder_s3(family, 16, "instance", 0.0)
+    else:
+        s3 = encoders.make_encoder_s3(family, 16, "instance", 0.0)
+        assert tuple(s3(img).shape) == (1, 16, 8, 8)
+    p35 = encoders.make_encoder_p35(family, 16, "instance", 0.0)
+    assert [tuple(o.shape) for o in p35(img)] == [
+        (1, 16, 8, 8), (1, 16, 4, 4), (1, 16, 2, 2)]
     with pytest.raises(ValueError):
         encoders.make_encoder_s3("nope", 256, "instance", 0.0)
