@@ -51,7 +51,9 @@ the card and fails (non-zero exit, no result line) on any fault:
    (``csrc/sample_window.cu``) against the plain version and its autograd
    on the card, TF32 off, at the ctf-l3 paths' shapes (training levels
    3-5 at b10 384x512, level 3 also bf16; the 448x1024 serve bucket's
-   level 3; two ragged tiny cases with far out-of-bounds centres, whose
+   level 3; raft+dicl/ml's levels 1 and 3 and raft+dicl/sl's grid at b10
+   496x368; raft/cl's levels 1-3 at b10 512x384, its level 0 being ctf's
+   level-3 case; two ragged tiny cases with far out-of-bounds centres, whose
    windows must be exact zeros), each timed beside the plain version, its
    bound and ``F.grid_sample`` (in float32 checked against the plain
    version first; in bf16 timed if it takes bf16, its refusal printed if
@@ -265,6 +267,26 @@ the card and fails (non-zero exit, no result line) on any fault:
    train`` of stage 0 of ``dicl-baseline.chairs-things-sintel-kitti.json``
    (b16 at 384x256, live batch norm), which launches no kernel of the
    port (its JAX module reaches no Pallas kernel). Median step ms,
+   pairs/s and peak device memory printed for each run;
+27. zoo: the rest of the model zoo at the shipped configs' widths:
+   ``raft/sl``, ``raft/sl-ctf-l2``/``-l3``/``-l4``, ``raft+dicl/sl-ca``,
+   ``raft/cl``, ``wip/warp/1`` and ``wip/warp/2``. Each one float32
+   forward from its ``cfg/model`` config (raft/sl's bf16 policy off), card
+   vs CPU from one seeded init, TF32 off, at 1x64x128 (sl-ctf-l4 and the
+   GA-Net models at 1x128x128), the final flow within phase 26's bound and
+   the TF32 forward outside it (for wip/warp/1 and /2, whose seeded
+   flows barely depend on the matching, every MatchingNet cost volume
+   within it relative to its largest value, TF32's outside), the combine
+   launched once a forward where the model upsamples, the sampler 12
+   times (raft/cl) and 4 times (sl-ca);
+   4 requests at 368x496 through ``ServeSession`` for raft/sl (its bf16
+   policy, bucket 368x496) and sl-ctf-l3 (f32, bucket 384x512); ``main
+   train`` of stage 0 of each ``cfg/full/baseline/*.s0-chairs.json`` as it
+   ships (b10, 496x368 or 512x384, live batch norm, AdamW, one-cycle,
+   clip; the wip stages without the ``gamma`` loss argument their losses
+   refuse in both packages) on phase 26's FlyingChairs-shaped tree, 5
+   steps: every loss finite, per step the combine 1 + 1, the sampler 8 + 4
+   (sl-ca) and 24 + 12 (raft/cl), nothing for wip/*; median step ms,
    pairs/s and peak device memory printed for each run.
 
 Each phase prints one JSON line (and a ``timing`` line); every phase runs
@@ -432,6 +454,15 @@ SW_CASES = (
      "shape": (10, 6, 8, 32, 46, 62)},
     {"name": "sl train", "dtype": "float32",
      "shape": (10, 46, 62, 32, 46, 62)},
+    # raft/cl training at b10 496x368, padded to 512x384: f2 at 1/16,
+    # 1/32 and 1/64, the centres on the 1/8 grid (its 1/8 level is the
+    # "train level 3" case)
+    {"name": "cl train level 1", "dtype": "float32",
+     "shape": (10, 24, 32, 32, 48, 64)},
+    {"name": "cl train level 2", "dtype": "float32",
+     "shape": (10, 12, 16, 32, 48, 64)},
+    {"name": "cl train level 3", "dtype": "float32",
+     "shape": (10, 6, 8, 32, 48, 64)},
     {"name": "ragged", "dtype": "float32", "shape": (2, 13, 17, 5, 6, 7)},
     {"name": "ragged", "dtype": "bfloat16", "shape": (2, 13, 17, 40, 6, 7)},
 )
@@ -1706,15 +1737,32 @@ CHAIRS_SHAPE = (384, 512)
 DICL_TRAIN_STEPS = {"ml": 5, "sl": 4, "dicl": 4}
 
 
-def _dicl_forward(cfg, seed, expected):
-    """One float32 forward of the model config ``cfg`` at DICL_MODEL_SHAPE,
-    card vs CPU from one seeded init, TF32 off, and the same forward on the
-    card with TF32; returns the readings and the problems."""
+def _cost_volumes(module):
+    """Forward hooks that record (on the CPU) each cost volume the
+    module's MatchingNets output; returns the record and the handles."""
+    from raft_meets_dicl_tpu_torch.models.common.blocks.dicl import (
+        MatchingNet)
+
+    record = []
+    handles = [m.register_forward_hook(
+        lambda _m, _i, out: record.append(out.detach().float().cpu()))
+        for m in module.modules() if isinstance(m, MatchingNet)]
+    return record, handles
+
+
+def _dicl_forward(cfg, seed, expected, shape=DICL_MODEL_SHAPE,
+                  costs=False):
+    """One float32 forward of the model config ``cfg`` at ``shape`` (B, H,
+    W), card vs CPU from one seeded init, TF32 off, and the same forward
+    on the card with TF32; returns the readings and the problems. With
+    ``costs`` every MatchingNet cost volume of the forward is held to the
+    bound too (relative to its largest |value|), and it is the TF32
+    forward's costs, not its flow, that must break it."""
     from raft_meets_dicl_tpu_torch import evaluation, models
 
     set_tf32(False)
     rng = np.random.default_rng(seed)
-    b, h, w = DICL_MODEL_SHAPE
+    b, h, w = shape
     img1, img2 = (torch.from_numpy(rng.uniform(-1, 1, (b, h, w, 3))
                                    .astype(np.float32)) for _ in range(2))
     cpu_spec = models.load(cfg)
@@ -1725,6 +1773,7 @@ def _dicl_forward(cfg, seed, expected):
     gpu_step = evaluation.make_eval_fn(gpu_spec.model)
     x1, x2 = img1.cuda(), img2.cuda()
 
+    gpu_costs, handles = _cost_volumes(gpu_spec.model.module)
     _zero_counts()
     _, flow_gpu = gpu_step(x1, x2)
     torch.cuda.synchronize()
@@ -1732,13 +1781,29 @@ def _dicl_forward(cfg, seed, expected):
     set_tf32(True)
     _, flow_tf32 = gpu_step(x1, x2)
     set_tf32(False)
+    for handle in handles:
+        handle.remove()
+    cpu_costs, handles = _cost_volumes(cpu_spec.model.module)
     t0 = time.perf_counter()
     _, flow_cpu = evaluation.make_eval_fn(cpu_spec.model)(img1, img2)
     cpu_s = time.perf_counter() - t0
+    for handle in handles:
+        handle.remove()
 
     scale = max(flow_cpu.abs().max().item(), 1.0)
     rel = (flow_gpu.cpu() - flow_cpu).abs().max().item() / scale
     rel_tf32 = (flow_tf32.cpu() - flow_cpu).abs().max().item() / scale
+    readings = {}
+    if costs:
+        n = len(cpu_costs)
+
+        def cost_rel(run):
+            return max((g - c).abs().max().item() / c.abs().max().item()
+                       for g, c in zip(run, cpu_costs))
+
+        readings = dict(cost_volumes=n,
+                        cost_rel_diff=cost_rel(gpu_costs[:n]),
+                        tf32_cost_rel_diff=cost_rel(gpu_costs[n:]))
     problems = []
     if launches != expected:
         problems.append(f"launched {launches}, expected {expected}")
@@ -1747,11 +1812,23 @@ def _dicl_forward(cfg, seed, expected):
     if not rel <= DICL_MODEL_REL:
         problems.append(f"card vs CPU {rel} > {DICL_MODEL_REL} of the "
                         "largest flow")
-    if not rel_tf32 > DICL_MODEL_REL:
+    if costs:
+        if not (readings["cost_volumes"] and len(gpu_costs)
+                == 2 * readings["cost_volumes"]):
+            problems.append(f"{len(gpu_costs)} card cost volumes against "
+                            f"{readings['cost_volumes']} on the CPU")
+        elif not readings["cost_rel_diff"] <= DICL_MODEL_REL:
+            problems.append(f"cost volumes card vs CPU "
+                            f"{readings['cost_rel_diff']} > {DICL_MODEL_REL}")
+        elif not readings["tf32_cost_rel_diff"] > DICL_MODEL_REL:
+            problems.append("the TF32 forward's costs stay inside the bound "
+                            f"({readings['tf32_cost_rel_diff']})")
+    elif not rel_tf32 > DICL_MODEL_REL:
         problems.append(f"the TF32 forward stays inside the bound "
                         f"({rel_tf32})")
-    return dict(rel_diff=rel, tf32_rel_diff=rel_tf32, max_abs_flow_px=scale,
-                launches=launches, cpu_forward_s=round(cpu_s, 3)), problems
+    return dict(shape=list(shape), rel_diff=rel, tf32_rel_diff=rel_tf32,
+                max_abs_flow_px=scale, **readings, launches=launches,
+                cpu_forward_s=round(cpu_s, 3)), problems
 
 
 def _dicl_serve(model_cfg, bucket, expected_per_batch):
@@ -1818,15 +1895,18 @@ def _write_chairs_tree(root, pairs):
     (root / "train_val.txt").write_text("1\n" * pairs)
 
 
-def _dicl_train(name, tmp):
-    """``main train`` of stage 0 of the shipped full config ``name`` (its
+def _full_train(path, steps, tmp, drop_loss_args=()):
+    """``main train`` of stage 0 of the shipped full config ``path`` (its
     model, augmentations, batch, optimizer, schedule and clip as they
-    ship) over a FlyingChairs-shaped tree, without validation, for
-    DICL_TRAIN_STEPS[name] steps; returns the readings and the problems."""
-    config = json.loads(DICL_FULL[name].read_text())
-    stage = dict(config["strategy"]["stages"][0])
+    ship, less the stage's loss arguments ``drop_loss_args``) over a
+    FlyingChairs-shaped tree, without validation, for ``steps`` steps;
+    returns the readings and the problems."""
+    config = json.loads(path.read_text())
+    stage = json.loads(json.dumps(config["strategy"]["stages"][0]))
+    for key in drop_loss_args:
+        stage["loss"]["arguments"].pop(key)
     batch = stage["data"]["batch-size"]
-    steps = DICL_TRAIN_STEPS[name]
+    name = path.name.split(".")[0]
     root = tmp / f"chairs-{name}"
     _write_chairs_tree(root, batch * steps + 1)
     stage["data"] = json.loads(json.dumps(stage["data"]))
@@ -1847,7 +1927,8 @@ def _dicl_train(name, tmp):
     run, problems = _run_readings(tctx, batch, steps, wall_s)
     crop = next(a["size"] for a in stage["data"]["source"]["augmentations"]
                 if a["type"] == "crop")
-    return dict(config=DICL_FULL[name].name, batch=batch, crop=crop, **run,
+    return dict(config=path.name, batch=batch, crop=crop,
+                dropped_loss_args=list(drop_loss_args), **run,
                 max_memory_allocated=peak, launches=launches,
                 wall_s=round(wall_s, 3)), problems
 
@@ -1891,7 +1972,7 @@ def phase_dicl(card):
                 sample_window_bwd=windows * steps,
                 convex_combine_8x=steps if windows else 0,
                 convex_combine_8x_bwd=steps if windows else 0)
-            readings, found = _dicl_train(name, tmp)
+            readings, found = _full_train(DICL_FULL[name], steps, tmp)
             if readings["launches"] != expected:
                 found.append(f"launched {readings['launches']}, expected "
                              f"{expected}")
@@ -1900,6 +1981,120 @@ def phase_dicl(card):
     emit(phase="dicl", card=card, **out)
     if problems:
         raise AssertionError("dicl phase: " + "; ".join(problems))
+    return paths
+
+
+# -- the rest of the model zoo: raft/sl, raft/sl-ctf-l2/l3/l4, raft+dicl/sl-ca,
+# raft/cl, wip/warp/1, wip/warp/2 ----------------------------------------
+
+FULL = ROOT / "cfg" / "full" / "baseline"
+MODEL_CFG = ROOT / "cfg" / "model"
+# per model: its shipped model config, the card-vs-CPU forward's (B, H, W)
+# and the kernel launches of one such forward. 1x64x128, except where a
+# level would be too small: sl-ctf-l4's 1/64 level (1x2 at 64x128, where
+# the instance-normalized pyramid heads amplify float32 rounding to 2e-5
+# of the flow on the CPU alone) and the GA-Net models, whose sides must be
+# divisible by 128. raft/cl runs its 4-level sampler 3 times, sl-ca once
+# an iteration (4); raft/sl's shipped bf16 policy is turned off here
+# (ZOO_COSTS: the models whose MatchingNet costs are held too, below)
+ZOO_FORWARDS = {
+    "raft_sl": ("raft-sl.yaml", (1, 64, 128), {"convex_combine_8x": 1}),
+    "sl_ctf_l2": ("raft-sl-ctf2l.yaml", (1, 64, 128),
+                  {"convex_combine_8x": 1}),
+    "sl_ctf_l3": ("raft-sl-ctf3l.yaml", (1, 64, 128),
+                  {"convex_combine_8x": 1}),
+    "sl_ctf_l4": ("raft-sl-ctf4l.yaml", (1, 128, 128),
+                  {"convex_combine_8x": 1}),
+    "sl_ca": ("raft+dicl-sl-ca.yaml", (1, 64, 128),
+              {"convex_combine_8x": 1, "sample_window": 4}),
+    "cl": ("raft-cl.yaml", (1, 128, 128),
+           {"convex_combine_8x": 1, "sample_window": 12}),
+    "warp1": ("wip-warp.yaml", (1, 128, 128), {}),
+    "warp2": ("wip-warp2.yaml", (1, 128, 128), {}),
+}
+# per model: its shipped stage-0 config and the launches of one train
+# step. The combine once forward and once backward; sl-ca's sampler 4
+# iterations, recomputed in the backward (4 + 4 forward, 4 backward);
+# raft/cl's 4 levels x 3 iterations, recomputed (12 + 12, 12); wip/*
+# none (their JAX modules reach no Pallas kernel). The wip stages pass
+# their losses a ``gamma`` that ``wip/warp/multiscale`` and
+# ``dicl/multiscale`` do not take: the JAX package and the port both raise
+# at the first step, so those runs drop it (ZOO_DROP_LOSS_ARGS)
+ZOO_DROP_LOSS_ARGS = {"warp1": ("gamma",), "warp2": ("gamma",)}
+ZOO_TRAIN = {
+    "raft_sl": ("raft-sl.s0-chairs.json", {"convex_combine_8x": 1,
+                                           "convex_combine_8x_bwd": 1}),
+    "sl_ctf_l2": ("raft-sl-ctf2l.s0-chairs.json",
+                  {"convex_combine_8x": 1, "convex_combine_8x_bwd": 1}),
+    "sl_ctf_l3": ("raft-sl-ctf3l.s0-chairs.json",
+                  {"convex_combine_8x": 1, "convex_combine_8x_bwd": 1}),
+    "sl_ctf_l4": ("raft-sl-ctf4l.s0-chairs.json",
+                  {"convex_combine_8x": 1, "convex_combine_8x_bwd": 1}),
+    "sl_ca": ("raft+dicl-sl-ca.s0-chairs.json",
+              {"convex_combine_8x": 1, "convex_combine_8x_bwd": 1,
+               "sample_window": 8, "sample_window_bwd": 4}),
+    "cl": ("raft-cl.s0-chairs.json",
+           {"convex_combine_8x": 1, "convex_combine_8x_bwd": 1,
+            "sample_window": 24, "sample_window_bwd": 12}),
+    "warp1": ("wip-warp.s0-chairs.json", {}),
+    "warp2": ("wip-warp2.s0-chairs.json", {}),
+}
+ZOO_TRAIN_STEPS = 5
+# the wip models' final flow from seeded weights barely depends on the
+# matching: wip/warp/2's is the coordinate resize's offsets (up to 15 px)
+# plus soft-argmin deltas near 0, wip/warp/1's stays under 0.001 px
+# (against 1 px), so TF32 moves it by less than the bound (1.3e-5 and
+# 5.7e-7 of the flow on an H100). For them every MatchingNet cost volume is
+# held to the bound too, and the TF32 run must break it there
+ZOO_COSTS = ("warp1", "warp2")
+# served: raft/sl under its shipped bf16 policy (padding 8) and
+# sl-ctf-l3 in float32 (padding 32)
+ZOO_SERVE = {"raft_sl": ("raft-sl.yaml", "368x496"),
+             "sl_ctf_l3": ("raft-sl-ctf3l.yaml", "384x512")}
+
+
+def phase_zoo(card):
+    """The rest of the model zoo at the shipped widths: card-vs-CPU
+    forwards, serving raft/sl and sl-ctf-l3, and ``main train`` of each
+    shipped stage 0."""
+    from raft_meets_dicl_tpu_torch import utils
+
+    problems, out, paths = [], {}, {}
+
+    def record(key, result):
+        readings, found = result
+        out[key] = readings
+        problems.extend(f"{key}: {p}" for p in found)
+        paths[f"zoo_{key}"] = readings["launches"]
+
+    for i, (name, (cfg_name, shape, launches)) in enumerate(
+            ZOO_FORWARDS.items()):
+        cfg = utils.config.load(MODEL_CFG / cfg_name)
+        params = cfg["model"].get("parameters", {})
+        if "mixed-precision" in params:
+            params["mixed-precision"] = False
+        record(f"{name}_model", _dicl_forward(
+            cfg, 20 + i, _expect(**launches), shape, name in ZOO_COSTS))
+    for name, (cfg_name, bucket) in ZOO_SERVE.items():
+        record(f"{name}_serve", _dicl_serve(
+            MODEL_CFG / cfg_name, bucket, _expect(convex_combine_8x=1)))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for name, (config, launches) in ZOO_TRAIN.items():
+            expected = _expect(**{k: v * ZOO_TRAIN_STEPS
+                                  for k, v in launches.items()})
+            readings, found = _full_train(
+                FULL / config, ZOO_TRAIN_STEPS, tmp,
+                ZOO_DROP_LOSS_ARGS.get(name, ()))
+            if readings["launches"] != expected:
+                found.append(f"launched {readings['launches']}, expected "
+                             f"{expected}")
+            record(f"{name}_train", (readings, found))
+
+    emit(phase="zoo", card=card, **out)
+    if problems:
+        raise AssertionError("zoo phase: " + "; ".join(problems))
     return paths
 
 
@@ -4868,6 +5063,7 @@ def kernels_line(results):
         **results["phase_wire_env"],
         **results["phase_recovery"],
         **results["phase_dicl"],
+        **results["phase_zoo"],
     }
 
     def launches(name):
@@ -5121,7 +5317,7 @@ def main():
               phase_fs_serve, phase_fs_train_step, phase_fs_train,
               phase_fs_train_all_levels, phase_lookup_kernels, phase_quant,
               phase_lifecycle, phase_augmented_train, phase_evaluate,
-              phase_wire_env, phase_recovery, phase_dicl)
+              phase_wire_env, phase_recovery, phase_dicl, phase_zoo)
     for phase in phases:
         run(phase)
     if failed:

@@ -1,7 +1,8 @@
 """Weight bridge: the JAX package's variables -> this package's
-``state_dict``, for ``raft/baseline``, ``raft/fs``, the ``raft+dicl``
-coarse-to-fine models, ``raft+dicl/ml``, ``raft+dicl/sl`` and
-``dicl/baseline`` / ``dicl/64to8``.
+``state_dict``, for every model type: ``raft/baseline`` and ``raft/sl``,
+``raft/fs``, the ``raft/sl-ctf`` and ``raft+dicl`` coarse-to-fine models,
+``raft+dicl/ml``, ``raft+dicl/sl`` and ``/sl-ca``, ``dicl/baseline`` /
+``dicl/64to8``, ``raft/cl``, ``wip/warp/1`` and ``wip/warp/2``.
 
 Input is the JAX variables tree as nested mappings of numpy arrays (for
 example ``jax.tree.map(np.asarray, model.init(...))``). Flax module paths
@@ -39,7 +40,11 @@ from .models.impls.dicl import DiclModule
 from .models.impls.raft_dicl_ctf import RaftPlusDiclCtfModule
 from .models.impls.raft_dicl_ml import RaftPlusDiclMlModule
 from .models.impls.raft_dicl_sl import RaftPlusDiclModule
+from .models.impls.outdated.raft_cl import RaftClModule
+from .models.impls.outdated.wip_recwarp import WipRecWarpModule
+from .models.impls.outdated.wip_warp import WipWarpModule
 from .models.impls.raft_fs import RaftFsModule
+from .models.impls.raft_sl_ctf import RaftSlCtfModule
 
 
 def _stem_rules(src):
@@ -136,15 +141,20 @@ def _pyramid_rules(flax_enc, torch_enc, levels):
     return rules
 
 
+def _conv_block_rules(flax_block, torch_block):
+    """A JAX ``ConvBlock`` -> the port's (conv, norm) ``ConvBlock``."""
+    return {f"{flax_block}.Conv_0": f"{torch_block}.0",
+            f"{flax_block}.Norm2d_0.BatchNorm_0": f"{torch_block}.1"}
+
+
 def _mnet_rules(flax_mnet, torch_mnet, blocks=4, transposed=True):
     """Rules for one MatchingNet (``blocks`` conv blocks, the transposed
     block, the output conv) or MatchingNet1x1 (three blocks, no transposed
     one)."""
     rules = {}
     for i in range(blocks):
-        rules[f"{flax_mnet}.ConvBlock_{i}.Conv_0"] = f"{torch_mnet}.{i}.0"
-        rules[f"{flax_mnet}.ConvBlock_{i}.Norm2d_0.BatchNorm_0"] = \
-            f"{torch_mnet}.{i}.1"
+        rules |= _conv_block_rules(f"{flax_mnet}.ConvBlock_{i}",
+                                   f"{torch_mnet}.{i}")
     out = blocks
     if transposed:
         rules[f"{flax_mnet}.ConvBlockTransposed_0.ConvTranspose_0"] = \
@@ -194,14 +204,15 @@ def _ga_block_rules(flax_block, torch_block, transposed):
     }
 
 
-def _ga_encoder_rules(flax_enc, torch_enc, depth, out_levels):
+def _ga_encoder_rules(flax_enc, torch_enc, depth, out_levels, heads=True):
     """Rules for one GA-Net ``FeatureEncoderGa``, by creation order as
     ``_dicl_rules`` has them for p26: stem ConvBlock_0..2, the down ladder
     ConvBlock_3.. (``conv{i}a``), the first up ladder
     GaConv2xBlockTransposed_0.. (``deconv{i}a``), the second down ladder
     GaConv2xBlock_* (``conv{i}b``), the final up ladder
     GaConv2xBlockTransposed_{depth}.. (``deconv{i}b``) with its heads, the
-    ConvBlocks after the ladder (``outconv{i}``)."""
+    ConvBlocks after the ladder (``outconv{i}``; none with ``heads``
+    False, the raw ladder features of ``raft/cl``)."""
     rules = {}
     for i in range(3):
         rules |= _basic_conv_rules(f"{flax_enc}.ConvBlock_{i}",
@@ -220,7 +231,7 @@ def _ga_encoder_rules(flax_enc, torch_enc, depth, out_levels):
         rules |= _ga_block_rules(
             f"{flax_enc}.GaConv2xBlockTransposed_{depth + n}",
             f"{torch_enc}.deconv{i}b", True)
-        if i - 1 in out_levels:
+        if heads and i - 1 in out_levels:
             rules |= _basic_conv_rules(
                 f"{flax_enc}.ConvBlock_{depth + 3 + n_heads}",
                 f"{torch_enc}.outconv{i}")
@@ -278,7 +289,7 @@ def _encoder_rules(named):
         seen[cls] = seen.get(cls, 0) + 1
         if isinstance(module, FeatureEncoderGa):
             rules |= _ga_encoder_rules(flax_enc, torch_enc, module.depth,
-                                       module.out_levels)
+                                       module.out_levels, module.heads)
         elif isinstance(module, FeatureEncoderRfpm):
             rules |= _rfpm_rules(flax_enc, torch_enc, module.levels)
         elif isinstance(module, FeatureEncoderPyramid):
@@ -319,18 +330,50 @@ def ctf_rules(levels, share_dicl, share_rnn, upsample_hidden, fnet=None,
             f"BasicUpdateBlock_{0 if share_rnn else i}",
             "update_block" if share_rnn else f"update_block_{lvl}")
 
+    # the reference l2 variant has a single transition and names its
+    # upsampler 'upnet_h' regardless of sharing
+    rules |= _hup_rules(level_ids, share_rnn or levels == 2, share_rnn,
+                        upsample_hidden)
+    rules["Up8Network_0.Conv_0"] = "upnet.conv1"
+    rules["Up8Network_0.Conv_1"] = "upnet.conv2"
+    return rules
+
+
+def _hup_rules(level_ids, shared_name, share_rnn, upsample_hidden):
+    """The hidden-state upsamplers of the transitions into ``level_ids[1:]``:
+    flax suffix 0 when shared, else the transition's index; torch
+    ``upnet_h`` when ``shared_name``, else ``upnet_h_{lvl}``."""
+    rules = {}
     for i, lvl in enumerate(level_ids[1:]):
         flax_h = 0 if share_rnn else i
-        # the reference l2 variant has a single transition and names its
-        # upsampler 'upnet_h' regardless of sharing
-        torch_h = "upnet_h" if share_rnn or levels == 2 else f"upnet_h_{lvl}"
+        torch_h = "upnet_h" if shared_name else f"upnet_h_{lvl}"
         if upsample_hidden == "bilinear":
             rules[f"HUpBilinear_{flax_h}.Conv_0"] = f"{torch_h}.conv1"
         elif upsample_hidden == "crossattn":
             for j, name in enumerate(("conv_q", "conv_k", "conv_v_prev",
                                       "conv_v_init", "conv_out")):
                 rules[f"HUpCrossAttn_{flax_h}.Conv_{j}"] = f"{torch_h}.{name}"
+    return rules
 
+
+def sl_ctf_rules(module):
+    """flax module path -> torch module path for a raft/sl-ctf-l*
+    ``module``: its encoders by family, per level (coarse to fine, flax
+    suffix i for the i-th level id) the update block (suffix 0 when
+    shared), the readout's DAPs (``SoftArgMaxFlowRegression_{i}``, one a
+    level), the hidden-state upsamplers and the Up8 head. The JAX scan
+    body's shared modules live in the parent scope, so no path names the
+    scan."""
+    level_ids = module.level_ids
+    share = module.share_rnn
+    rules = _encoder_rules((("fnet", module.fnet), ("cnet", module.cnet)))
+    for i, lvl in enumerate(level_ids):
+        rules |= _update_block_rules(
+            f"BasicUpdateBlock_{0 if share else i}",
+            "update_block" if share else f"update_block_{lvl}")
+        rules[f"SoftArgMaxFlowRegression_{i}.DisplacementAwareProjection_0"
+              ".Conv_0"] = f"flow_reg_{lvl}.dap.0.conv1"
+    rules |= _hup_rules(level_ids, share, share, module.upsample_hidden)
     rules["Up8Network_0.Conv_0"] = "upnet.conv1"
     rules["Up8Network_0.Conv_1"] = "upnet.conv2"
     return rules
@@ -427,8 +470,73 @@ def dicl_rules(levels=(6, 5, 4, 3, 2)):
     return rules
 
 
+def cl_rules(module):
+    """flax module path -> torch module path for a raft/cl ``module``: the
+    GA-Net ladder without heads (``fnet``) and the s3 context encoder
+    (``cnet``); the heads' conv blocks (``_FeatureNetUp_0`` /
+    ``_FeatureNetDown_0``, ``out.{i}``) and the frame-1 head's masks
+    (``Conv_0..5``: ``mask5``, ``mask4``, ``mask3``, as the JAX module
+    creates them); the correlation module's ``mnets_{i}`` and
+    ``daps_{i}``; the update block and the Up8 head."""
+    rules = _encoder_rules((("fnet", module.fnet), ("cnet", module.cnet)))
+    for flax_head, torch_head in (("_FeatureNetUp_0", "fnet_u"),
+                                  ("_FeatureNetDown_0", "fnet_d")):
+        for i in range(4):
+            rules |= _conv_block_rules(f"{flax_head}.ConvBlock_{i}",
+                                       f"{torch_head}.out.{i}")
+    for j, lvl in enumerate((5, 4, 3)):
+        rules[f"_FeatureNetUp_0.Conv_{2 * j}"] = f"fnet_u.mask{lvl}.0"
+        rules[f"_FeatureNetUp_0.Conv_{2 * j + 1}"] = f"fnet_u.mask{lvl}.2"
+    corr = "_ClCorrelationModule_0"
+    for i in range(4):
+        rules |= _mnet_rules(f"{corr}.mnets_{i}", f"corr.mnet.{i}")
+        rules[f"{corr}.daps_{i}.Conv_0"] = f"corr.dap.{i}.conv1"
+    return rules | _recurrent_rules()
+
+
+def wip_warp_rules(module):
+    """flax module path -> torch module path for a wip/warp/1 ``module``:
+    the p26 GA-Net (``fnet``) and the level unit ``_RecurrentLevelUnit_0``
+    (``rlu``): ``cvnets_{i}``, ``daps_{i}``, the motion encoder ``menet``,
+    the GRU ``gru`` and the flow head ``fhead``."""
+    rules = _encoder_rules((("fnet", module.fnet),))
+    unit = "_RecurrentLevelUnit_0"
+    for i in range(5):
+        rules |= _mnet_rules(f"{unit}.cvnets_{i}", f"rlu.cvnets.{i}")
+        rules[f"{unit}.daps_{i}.Conv_0"] = f"rlu.daps.{i}.conv1"
+    for i in range(3):
+        rules[f"{unit}.menet.Conv_{i}"] = f"rlu.menet.{i}"
+    for i, name in enumerate(("convz1", "convr1", "convq1",
+                              "convz2", "convr2", "convq2")):
+        rules[f"{unit}.gru.Conv_{i}"] = f"rlu.gru.{name}"
+    for i in range(2):
+        rules[f"{unit}.fhead.Conv_{i}"] = f"rlu.fhead.{i}"
+    return rules
+
+
+def wip_recwarp_rules(module):
+    """flax module path -> torch module path for a wip/warp/2 ``module``:
+    the p26 GA-Net (``fnet``) and per level (finest first) the unit
+    ``_RecurrentFlowUnit_{i}`` (``rfu.{i}``: ``mnet``, ``dap``)."""
+    rules = _encoder_rules((("fnet", module.fnet),))
+    for i in range(len(module.rfu)):
+        unit = f"_RecurrentFlowUnit_{i}"
+        rules |= _mnet_rules(f"{unit}.MatchingNet_0", f"rfu.{i}.mnet")
+        rules[f"{unit}.DisplacementAwareProjection_0.Conv_0"] = \
+            f"rfu.{i}.dap.conv1"
+    return rules
+
+
 def rules_for(module):
     """The rules for this package's model ``module``."""
+    if isinstance(module, RaftSlCtfModule):
+        return sl_ctf_rules(module)
+    if isinstance(module, RaftClModule):
+        return cl_rules(module)
+    if isinstance(module, WipWarpModule):
+        return wip_warp_rules(module)
+    if isinstance(module, WipRecWarpModule):
+        return wip_recwarp_rules(module)
     if isinstance(module, RaftPlusDiclCtfModule):
         return ctf_rules(module.levels, module.share_dicl, module.share_rnn,
                          module.upsample_hidden, module.fnet, module.cnet,
@@ -605,9 +713,10 @@ _NORM_INNER = {"BatchNorm2d": "BatchNorm_0", "GroupNorm": "GroupNorm_0",
 def activation_points(module):
     """flax module path -> ``(torch module path, "output" | "input")`` for
     every module whose output the JAX package's ``capture_intermediates``
-    forward records in raft/baseline and raft/fs: the two S3 encoders and
-    everything in them, the convex upsampler (batched over the
-    iterations, as in both packages) and the whole model (``__call__``).
+    forward records in raft/baseline, raft/sl and raft/fs: the two S3
+    encoders and everything in them, the convex upsampler (batched over
+    the iterations, as in both packages) and the whole model
+    (``__call__``).
     The recurrent step's modules run inside JAX's scan, whose
     intermediates flax does not keep, and have no point. ``input`` is the
     input of the module named: the encoders' ``_Stem_0`` output is the
@@ -617,7 +726,7 @@ def activation_points(module):
     with parameters), plus flax's parameterless wrappers: ``Norm2d_k``
     and its inner ``BatchNorm_0``/``GroupNorm_0`` are one torch norm
     module, ``ResidualBlock_i`` is torch's ``layer{i // 2 + 1}.{i % 2}``.
-    Raises ``NotImplementedError`` for the coarse-to-fine models."""
+    Raises ``NotImplementedError`` for the other models."""
     if isinstance(module, RaftPlusDiclCtfModule):
         raise NotImplementedError(
             "activation hooks of the raft+dicl coarse-to-fine models are "
@@ -626,6 +735,11 @@ def activation_points(module):
                            DiclModule)):
         raise NotImplementedError(
             "activation hooks of raft+dicl/ml, raft+dicl/sl and the dicl "
+            "models are not ported yet (ROADMAP slice 2 item 7's rest)")
+    if isinstance(module, (RaftSlCtfModule, RaftClModule, WipWarpModule,
+                           WipRecWarpModule)):
+        raise NotImplementedError(
+            "activation hooks of raft/sl-ctf, raft/cl and the wip/warp "
             "models are not ported yet (ROADMAP slice 2 item 7's rest)")
     mods = dict(module.named_modules())
     points = {"__call__": ("", "output")}

@@ -259,14 +259,17 @@ class PairEmbedding(nn.Sequential):
 
 class DisplacementAwareProjection(nn.Module):
     """1x1 conv (no bias) mixing the du·dv displacement channels of a cost
-    volume (B, H, W, du, dv) -> (B, H, W, du, dv). ``init='identity'``
-    starts as a no-op projection."""
+    volume (B, H, W, du, dv) -> (B, H, W, du, dv). ``radius`` is r (a
+    square window) or the range (ru, rv); ``init='identity'`` starts as a
+    no-op projection."""
 
     def __init__(self, radius, init="identity"):
         super().__init__()
         if init not in ("identity", "standard"):
             raise ValueError(f"unknown init value '{init}'")
-        k2 = (2 * radius + 1) ** 2
+        ru, rv = radius if isinstance(radius, (tuple, list)) else (radius,
+                                                                   radius)
+        k2 = (2 * ru + 1) * (2 * rv + 1)
         self.conv1 = Conv2d(k2, k2, 1, bias=False,
                             init="identity" if init == "identity" else "lecun")
 

@@ -28,12 +28,15 @@ class FeatureEncoderGa(nn.Module):
     """Parametric GA-Net hourglass: down ``depth``, up, down, up with heads.
 
     Returns the features at ``out_levels``, finest first (a single map when
-    one level is asked for). An ``(img1, img2)`` pair runs as one batch of
-    2N, its live batch-norm statistics per image (``BatchNorm2d``'s
-    ``splits``), as the reference encodes the two in separate calls."""
+    one level is asked for): each through its output head, or with
+    ``heads=False`` the final up ladder's raw features (the ladder's
+    channels at that level, ``_CHANNELS[level]``). An ``(img1, img2)``
+    pair runs as one batch of 2N, its live batch-norm statistics per image
+    (``BatchNorm2d``'s ``splits``), as the reference encodes the two in
+    separate calls."""
 
     def __init__(self, output_dim=32, depth=3, out_levels=(2,),
-                 norm_type="batch"):
+                 norm_type="batch", heads=True):
         super().__init__()
         out_levels = tuple(sorted(out_levels))
         if not (1 <= out_levels[0] and out_levels[-1] < depth):
@@ -41,6 +44,7 @@ class FeatureEncoderGa(nn.Module):
                              f"{depth - 1}")
         self.depth = depth
         self.out_levels = out_levels
+        self.heads = heads
         ch = _CHANNELS
         self.conv0 = nn.Sequential(
             BasicConv(3, ch[0], norm_type=norm_type),
@@ -58,7 +62,7 @@ class FeatureEncoderGa(nn.Module):
         for i in range(depth, out_levels[0], -1):
             setattr(self, f"deconv{i}b",
                     GaConv2xBlockTransposed(ch[i], ch[i - 1], norm_type))
-            if i - 1 in out_levels:
+            if heads and i - 1 in out_levels:
                 setattr(self, f"outconv{i}",
                         BasicConv(ch[i - 1], output_dim, norm_type=norm_type))
 
@@ -91,8 +95,8 @@ class FeatureEncoderGa(nn.Module):
         for i in range(self.depth, self.out_levels[0], -1):
             x = getattr(self, f"deconv{i}b")(x, res[i - 1], train, frozen_bn)
             if i - 1 in self.out_levels:
-                outputs[i - 1] = getattr(self, f"outconv{i}")(x, train,
-                                                              frozen_bn)
+                outputs[i - 1] = (getattr(self, f"outconv{i}")(
+                    x, train, frozen_bn) if self.heads else x)
         outs = tuple(outputs[lvl] for lvl in self.out_levels)  # finest first
 
         if paired:

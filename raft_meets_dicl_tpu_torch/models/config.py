@@ -14,19 +14,6 @@ from . import model as model_mod
 _MODELS = {}
 _LOSSES = {}
 
-# model types of the JAX package not ported yet, by the ROADMAP item that
-# brings each: loading one refuses naming it
-_LATER = {
-    **dict.fromkeys(("raft/sl", "raft/sl-ctf-l2", "raft/sl-ctf-l3",
-                     "raft/sl-ctf-l4"),
-                    "slice 5, impls/raft_sl.py and raft_sl_ctf.py"),
-    **dict.fromkeys(("raft/cl", "raft+dicl/sl-ca", "wip/warp/1",
-                     "wip/warp/2", "wip/warp/multiscale",
-                     "wip/warp/multiscale+corr_hinge",
-                     "wip/warp/multiscale+corr_mse"),
-                    "slice 5, impls/outdated"),
-}
-
 
 def register_model(cls):
     """Class decorator: add a Model subclass to the type registry."""
@@ -103,9 +90,6 @@ def load_model(cfg) -> model_mod.Model:
     from . import impls  # noqa: F401 — triggers registration
 
     ty = cfg["type"]
-    if ty in _LATER:
-        raise NotImplementedError(f"model type '{ty}' is not ported yet "
-                                  f"(ROADMAP {_LATER[ty]})")
     if ty not in _MODELS:
         raise ValueError(f"unknown model type '{ty}'")
     return _MODELS[ty].from_config(cfg)

@@ -95,6 +95,15 @@ ZERO_GRAD = 1e-6
 # about linear in the clipped gradient), plus the rounding of the stored
 # parameters (one float32 ulp each: a batch-norm scale near 1 moves ~1e-4)
 STATS_ATOL = 1e-5
+# the lockstep's port side runs on this many torch threads, whatever the
+# process had: the gradient sums' order follows the thread count, and one
+# element on level 4's cost path lies at a rounding kink. At 2, 4, 5 and
+# 12 threads corr_4.mnet.0.0.weight's gradient reads 2.183e-3 relative L2
+# (over GRAD_REL_L2), at 3, 6, 7 and 8 threads 8.5e-6 to 9.2e-6; on one
+# thread cnet.out4.conv1.weight reads 2.0e-3. A process left at its
+# default gets every core with MKL's dynamic threading, which may run
+# fewer under the suite's other workers: the reading moved between runs
+LOCKSTEP_THREADS = 3
 
 
 def _cfg(mixed_precision=False, iterations=ITERATIONS, params=PARAMS):
@@ -290,12 +299,16 @@ def lockstep(variables, batch):
         tm.model.module.parameters(),
         strategy.spec.GradientSpec.from_config(GRADIENT))
     tstep = parallel.make_train_step(tm.model, tm.loss, with_grads=True)
-    # true float32 convolutions, as the JAX side runs at 'highest'; not on
-    # one thread, whose sums put update_block.encoder.convc1.bias's
-    # gradient at 1.43e-3 relative L2 from JAX's, over GRAD_REL_L2
-    with torch.backends.mkldnn.flags(enabled=False):
-        _, taux = tstep(parallel.TrainState(tm.model, ttx), LR,
-                        *(torch.from_numpy(x) for x in batch))
+    # true float32 convolutions, as the JAX side runs at 'highest', on
+    # LOCKSTEP_THREADS torch threads
+    threads = torch.get_num_threads()
+    torch.set_num_threads(LOCKSTEP_THREADS)
+    try:
+        with torch.backends.mkldnn.flags(enabled=False):
+            _, taux = tstep(parallel.TrainState(tm.model, ttx), LR,
+                            *(torch.from_numpy(x) for x in batch))
+    finally:
+        torch.set_num_threads(threads)
     torch_side = {
         "aux": taux,
         "grads": {k: g.numpy() for k, g in taux["grads"].items()},

@@ -295,6 +295,8 @@ def _port_step(cfg, variables, batch, model_args, loss_args):
 
 
 def _detached(tree):
+    if isinstance(tree, dict):
+        return {k: _detached(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_detached(x) for x in tree)
     return tree.detach()

@@ -6,8 +6,9 @@ held against the JAX package on the CPU.
 - each of the 21 ``cfg/full/baseline/*.json`` goes through
   ``load_config_parts`` on both sides, and its model, strategy (each
   stage built as the trainer builds it), inspector and environment load
-  to JAX's configs, or the port refuses naming the item it waits on; the
+  to JAX's configs (none is refused: ``FULL_REFUSED`` is empty); the
   dataset roots are stubs, as in ``tests/test_cfg_corpus.py``;
+- the port registers the model and loss types the JAX package does;
 - ``load_config_parts``: the part flags override ``-c``'s parts;
 - ``main train -c <run>/config.json --reproduce`` repeats the run's
   losses bit for bit, its ``config.json`` carries the environment, and
@@ -55,18 +56,9 @@ ENV_REFUSED = {
     "spmd": "slice 2 item 10",
 }
 
-# full configs the port refuses, by the ROADMAP item named: their models
-# (slice 5)
-FULL_REFUSED = {
-    "raft+dicl-sl-ca.s0-chairs": "slice 5",
-    "raft-cl.s0-chairs": "slice 5",
-    "raft-sl.s0-chairs": "slice 5",
-    "raft-sl-ctf2l.s0-chairs": "slice 5",
-    "raft-sl-ctf3l.s0-chairs": "slice 5",
-    "raft-sl-ctf4l.s0-chairs": "slice 5",
-    "wip-warp.s0-chairs": "slice 5",
-    "wip-warp2.s0-chairs": "slice 5",
-}
+# full configs the port refuses, by the ROADMAP item named: none, since
+# every model type is ported
+FULL_REFUSED = {}
 
 
 def _norm(cfg):
@@ -77,6 +69,12 @@ def test_corpus_sizes():
     assert len(ENVS) == 9 and len(FULL) == 21
     assert set(ENV_REFUSED) < {p.stem for p in ENVS}
     assert set(FULL_REFUSED) < {p.stem for p in FULL}
+
+
+def test_registries_match_jax():
+    """Every model and loss type the JAX package registers, and no other."""
+    assert tmodels.config.model_types() == jmodels.config.model_types()
+    assert tmodels.config.loss_types() == jmodels.config.loss_types()
 
 
 @pytest.mark.parametrize("path", ENVS, ids=lambda p: p.stem)
