@@ -130,7 +130,8 @@ the card and fails (non-zero exit, no result line) on any fault:
 20. quantized tier: the int8 pyramid, the u8 pyramid and u8/i8 levels of
    identical inputs on the card and the CPU (the levels and int8 level 0
    bit for bit, pooled int8 levels one step at most; u8 values one step
-   apart in a share TF32 on the volume matmul must exceed), then
+   apart in a share TF32 on the volume matmul must exceed; the int8
+   pyramid with TF32 on bit for bit as with it off), then
    ``raft/baseline`` in float32 at 1x368x496, 12 iterations, with
    ``quant`` u8 and i8, and ``raft/fs`` with u8 at ``RMD_FS_VOLUME_GIB``
    0.01 (two quantized volume levels), card vs CPU from one seeded init,
@@ -287,7 +288,34 @@ the card and fails (non-zero exit, no result line) on any fault:
    refuse in both packages) on phase 26's FlyingChairs-shaped tree, 5
    steps: every loss finite, per step the combine 1 + 1, the sampler 8 + 4
    (sl-ca) and 24 + 12 (raft/cl), nothing for wip/*; median step ms,
-   pairs/s and peak device memory printed for each run.
+   pairs/s and peak device memory printed for each run;
+28. ladder: the iteration ladder's rungs (``evaluation.make_rung_fn``)
+   chained through the ``(flow, hidden)`` carry against the monolithic
+   rung on the card, the final flow, carry flow and hidden equal by
+   ``torch.equal``: ``raft/baseline`` f32 at phase 4's 1x368x496, images
+   and weights, 4 + 4 + 4 against 12, TF32 off, the chain within phase
+   4's bound of the CPU's 12-iteration rung and the TF32 rung outside it,
+   each rung's device ms; ``raft+dicl/ctf-l3`` f32 at 1x128x192,
+   iterations (4, 3, 3) then +3 at the finest level against (4, 3, 6)
+   (sampler 10, 3 and 13 launches); ``raft/fs`` f32 at 1x368x496 with
+   every level windowed, 4 + 4 against 8 (one windowed launch an
+   iteration); ``raft+dicl/sl`` f32 at 1x64x96, 4 + 4 against 8; the
+   combine once a rung. ctf-l3's and sl's chains run on cuDNN's
+   deterministic algorithms (``cudnn.deterministic``): their MatchingNet's
+   transposed convolution on the default algorithm is not exact from run
+   to run, which each model's two monolithic runs on the defaults show
+   (``repeat_equal``, printed). Then ``main serve -c cfg/serve/example.yaml
+   --ladder 4,8,12 --quant u8`` (raft bf16 policy, u8 wire, buckets
+   384x1280 and 448x1024, batch 4, 32 requests at 50/s cycling the
+   classes fast, balanced, quality): every request served, no error or
+   shed, every flow finite, fast at 4 iterations, quality at 12,
+   balanced within 4-12, the combine once a rung program dispatched and
+   once a warm-up record, the TF32 switches as before the run; per-class
+   p50/p99 and iteration histograms printed; request 0 (fast: the u8
+   tier's 4-iteration rung) within phase 20's u8 bound on the final flow
+   (2.5e-3 of its largest |value|) of the in-process quantized 4-iteration
+   rung of its host-decoded images, and that rung's distance to the
+   plain one printed.
 
 Each phase prints one JSON line (and a ``timing`` line); every phase runs
 even after another failed, and a failure ends the run with exit code 1
@@ -2915,6 +2943,15 @@ def phase_quant(card):
     f2[..., 7] *= 30.0
     cpu = quant.correlation_pyramid_int8(f1, f2, 4)
     gpu = quant.correlation_pyramid_int8(f1.cuda(), f2.cuda(), 4)
+    # the int8 dot is an integer GEMM: TF32 on leaves the pyramid as it is
+    set_tf32(True)
+    gpu_tf32 = quant.correlation_pyramid_int8(f1.cuda(), f2.cuda(), 4)
+    set_tf32(False)
+    for lvl, (g, t) in enumerate(zip(gpu, gpu_tf32)):
+        if not (torch.equal(g.values, t.values)
+                and torch.equal(g.scale, t.scale)):
+            raise AssertionError(f"int8 pyramid level {lvl}: TF32 on moves "
+                                 "it")
     pyramid = []
     for lvl, (c, g) in enumerate(zip(cpu, gpu)):
         step = (g.values.cpu().int() - c.values.int()).abs()
@@ -5028,6 +5065,322 @@ def phase_recovery(card):
     return paths
 
 
+# -- the iteration ladder: rungs chained through the (flow, hidden) carry
+# against the monolithic rung on the card, then the shipped serve config
+# with a ladder and the quantized fast class. raft/baseline at phase 4's
+# shape and seeds: base 4, +4, +4 against 12 (phase 4's bound card vs CPU)
+LADDER_RAFT = (4, 4, 12)
+LADDER_RAFT_SHAPE = (1, 368, 496)
+# ctf-l3 (iterations (4, 3, 3) then +3 at the finest level) and raft/fs
+# (every level windowed, 4 then +4) at one small shape each, sl at 1x64x96
+LADDER_CTF_SHAPE = (1, 128, 192)
+LADDER_CTF = (3, 3, 6)
+LADDER_FS = (4, 4, 8)
+LADDER_SL = (4, 4, 8)
+LADDER_SERVE = ("--ladder", "4,8,12", "--quant", "u8")
+# the fast class's served flow (u8 wire, u8 tier, decoded on the card)
+# against the in-process quantized 4-iteration rung of its host-decoded
+# images at the dispatched batch's shape: phase 20's u8 bound on the final
+# flow, relative to its largest |value|
+LADDER_FAST_REL = QUANT_MODEL_REL["final"]["raft u8"]
+
+
+def _chain(spec, x1, x2, rungs, cont_launches, deterministic=False):
+    """Rungs ``(base, increment, total)`` of ``spec`` on the card: base,
+    then continuations up to the total, against the monolithic rung of the
+    total; returns the chain's (flow, state), the problems, each
+    program's launches and whether two monolithic runs with cuDNN's
+    default algorithms are equal. ``deterministic`` runs the chain and its
+    reference on cuDNN's deterministic algorithms (the DICL MatchingNet's
+    transposed convolution runs as a backward-data convolution, whose
+    default algorithm may add in any order)."""
+    from raft_meets_dicl_tpu_torch import evaluation
+
+    base_its, inc, total = rungs
+    base = evaluation.make_rung_fn(spec.model, base_its)
+    cont = evaluation.make_rung_fn(spec.model, inc, cont=True)
+    full = evaluation.make_rung_fn(spec.model, total)
+    repeat_equal = torch.equal(full(x1, x2)[0], full(x1, x2)[0])
+    launches = {}
+
+    def counted(name, fn, *args):
+        _zero_counts()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        launches.setdefault(name, []).append(_counts())
+        return out
+
+    with torch.backends.cudnn.flags(
+            enabled=True, benchmark=False, deterministic=deterministic,
+            allow_tf32=torch.backends.cudnn.allow_tf32):
+        flow, state = counted("base", base, x1, x2)
+        for _ in range((total - base_its) // inc):
+            flow, state = counted("cont", cont, x1, x2, state["flow"],
+                                  state["hidden"])
+        flow_full, state_full = counted("full", full, x1, x2)
+    problems = []
+    for key, a, b in (("final flow", flow, flow_full),
+                      ("carry flow", state["flow"], state_full["flow"]),
+                      ("hidden", state["hidden"], state_full["hidden"])):
+        if not torch.equal(a, b):
+            problems.append(f"chained {key} != monolithic (max |diff| "
+                            f"{(a.float() - b.float()).abs().max().item()})")
+    for name, expected in (("base", cont_launches(base_its, False)),
+                           ("cont", cont_launches(inc, True)),
+                           ("full", cont_launches(total, False))):
+        for counts in launches[name]:
+            if counts != _expect(**expected):
+                problems.append(f"{name} rung launched {counts}, expected "
+                                f"{_expect(**expected)}")
+    if not bool(torch.isfinite(flow).all()):
+        problems.append("non-finite chained flow")
+    return (flow, state), problems, {
+        name: [{k: v for k, v in c.items() if v} for c in counts]
+        for name, counts in launches.items()}, repeat_equal
+
+
+def _ladder_models(card):
+    """The chains of raft/baseline (card vs CPU too, and TF32), ctf-l3,
+    raft/fs and sl."""
+    from raft_meets_dicl_tpu_torch import evaluation, models
+
+    readings, problems = {}, []
+
+    def seeded(load, cfg_seed=0):
+        cpu = load()
+        cpu.model.init(torch.Generator().manual_seed(cfg_seed), device="cpu")
+        gpu = load()
+        gpu.model.module.load_state_dict(cpu.model.module.state_dict())
+        gpu.model.module.to("cuda").eval()
+        return cpu, gpu
+
+    def images(seed, shape):
+        rng = np.random.default_rng(seed)
+        return tuple(torch.from_numpy(rng.uniform(-1, 1, (*shape, 3))
+                                      .astype(np.float32)) for _ in range(2))
+
+    set_tf32(False)
+    # raft/baseline: phase 4's images and weights
+    img1, img2 = images(0, LADDER_RAFT_SHAPE)
+    cpu, gpu = seeded(lambda: _load_raft(False))
+    x1, x2 = img1.cuda(), img2.cuda()
+    (flow, state), p, launches, repeat_equal = _chain(
+        gpu, x1, x2, LADDER_RAFT, lambda its, cont: {"convex_combine_8x": 1})
+    problems += [f"raft: {m}" for m in p]
+    t0 = time.perf_counter()
+    cpu_flow, _ = evaluation.make_rung_fn(cpu.model, LADDER_RAFT[2])(
+        img1, img2)
+    cpu_s = time.perf_counter() - t0
+    diff = (flow.cpu() - cpu_flow).abs().max().item()
+    set_tf32(True)
+    tf32_flow, _ = evaluation.make_rung_fn(gpu.model, LADDER_RAFT[2])(x1, x2)
+    set_tf32(False)
+    tf32_diff = (tf32_flow.cpu() - cpu_flow).abs().max().item()
+    if not diff <= MODEL_MAX_ABS_DIFF:
+        problems.append(f"raft: chained card vs CPU {diff} px > "
+                        f"{MODEL_MAX_ABS_DIFF}")
+    if not tf32_diff > MODEL_MAX_ABS_DIFF:
+        problems.append(f"raft: the TF32 rung stays inside the card-vs-CPU "
+                        f"bound ({tf32_diff} px)")
+    rung_ms = {
+        f"{name}:{its}": gpu_timer_ms(lambda: step(x1, x2, *carry),
+                                      launches=3)
+        for name, its, step, carry in (
+            ("base", 4, evaluation.make_rung_fn(gpu.model, 4), ()),
+            ("cont", 4, evaluation.make_rung_fn(gpu.model, 4, cont=True),
+             (state["flow"], state["hidden"])),
+            ("full", 12, evaluation.make_rung_fn(gpu.model, 12), ()))}
+    readings["raft"] = dict(
+        shape=list(LADDER_RAFT_SHAPE), rungs=list(LADDER_RAFT), tf32=False,
+        max_abs_diff_px=diff, bound_px=MODEL_MAX_ABS_DIFF,
+        tf32_max_abs_diff_px=tf32_diff,
+        max_abs_flow_px=cpu_flow.abs().max().item(),
+        delta=state["delta"].cpu().tolist(), launches=launches,
+        rung_ms=rung_ms, cpu_rung_s=round(cpu_s, 3),
+        cudnn_deterministic=False, repeat_equal=repeat_equal)
+
+    # ctf-l3: a continuation runs the finest level only
+    img1, img2 = images(5, LADDER_CTF_SHAPE)
+    _, gpu = seeded(_load_ctf)
+    (flow, state), p, launches, repeat_equal = _chain(
+        gpu, img1.cuda(), img2.cuda(), LADDER_CTF,
+        lambda its, cont: {"convex_combine_8x": 1, "sample_window":
+                           its if cont else its + sum(
+                               CTF_LEVEL_ITERATIONS[:-1])},
+        deterministic=True)
+    problems += [f"ctf-l3: {m}" for m in p]
+    readings["ctf-l3"] = dict(shape=list(LADDER_CTF_SHAPE),
+                              rungs=list(LADDER_CTF), launches=launches,
+                              delta=state["delta"].cpu().tolist(),
+                              cudnn_deterministic=True,
+                              repeat_equal=repeat_equal)
+
+    # raft/fs, every level windowed: one windowed launch an iteration
+    img1, img2 = images(6, (1, *FS_MODEL_SHAPE))
+    with _volume_budget("0"):
+        _, gpu = seeded(_load_fs)
+        (flow, state), p, launches, repeat_equal = _chain(
+            gpu, img1.cuda(), img2.cuda(), LADDER_FS,
+            lambda its, cont: {"convex_combine_8x": 1,
+                               "windowed_corr_pyramid": its})
+    problems += [f"raft/fs: {m}" for m in p]
+    readings["raft/fs"] = dict(shape=[1, *FS_MODEL_SHAPE],
+                               rungs=list(LADDER_FS), budget_gib="0",
+                               launches=launches,
+                               delta=state["delta"].cpu().tolist(),
+                               cudnn_deterministic=False,
+                               repeat_equal=repeat_equal)
+
+    # raft+dicl/sl: one sampler launch an iteration
+    img1, img2 = images(7, DICL_MODEL_SHAPE)
+    _, gpu = seeded(lambda: models.load(DICL_SL_CFG))
+    (flow, state), p, launches, repeat_equal = _chain(
+        gpu, img1.cuda(), img2.cuda(), LADDER_SL,
+        lambda its, cont: {"convex_combine_8x": 1, "sample_window": its},
+        deterministic=True)
+    problems += [f"sl: {m}" for m in p]
+    readings["sl"] = dict(shape=list(DICL_MODEL_SHAPE),
+                          rungs=list(LADDER_SL), launches=launches,
+                          delta=state["delta"].cpu().tolist(),
+                          cudnn_deterministic=True,
+                          repeat_equal=repeat_equal)
+    return readings, problems
+
+
+def _ladder_serve(card):
+    """``main serve -c cfg/serve/example.yaml --ladder 4,8,12 --quant u8``:
+    every class served with its iterations, the combine launched once a
+    rung program and once a warm-up record, TF32 switches untouched; the
+    fast class's request 0 against the in-process quantized rung."""
+    from raft_meets_dicl_tpu_torch import evaluation, models
+    from raft_meets_dicl_tpu_torch import main as port_main
+    from raft_meets_dicl_tpu_torch.models.input import ShapeBuckets
+    from raft_meets_dicl_tpu_torch.models.wire import WireFormat
+    from raft_meets_dicl_tpu_torch.serve import loadgen
+    from raft_meets_dicl_tpu_torch.serve.session import ServeSession
+    from raft_meets_dicl_tpu_torch.utils import config
+
+    shipped = config.load(SERVE_EXAMPLE)["serve"]
+    buckets = ShapeBuckets.from_config(shipped["buckets"]).sizes
+    batch, requests = shipped["batch-size"], shipped["requests"]
+    # back to PyTorch's defaults, as a served process starts
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tf32_before = (torch.backends.cudnn.allow_tf32,
+                   torch.backends.cuda.matmul.allow_tf32)
+
+    original, programs = ServeSession.run_ladder, []
+
+    def run_ladder(self, img1, img2, klass):
+        flow, info = original(self, img1, img2, klass)
+        programs.append((klass, info["rungs"], info["iterations"]))
+        return flow, info
+
+    ServeSession.run_ladder = run_ladder
+    try:
+        _zero_counts()
+        report = port_main.main(["serve", "-c", str(SERVE_EXAMPLE),
+                                 *LADDER_SERVE])
+        torch.cuda.synchronize()
+        counts = _counts()
+    finally:
+        ServeSession.run_ladder = original
+    tf32_after = (torch.backends.cudnn.allow_tf32,
+                  torch.backends.cuda.matmul.allow_tf32)
+
+    problems = []
+    if report["completed"] != requests or report["requests"] != requests:
+        problems.append(f"completed {report['completed']}/"
+                        f"{report['requests']}")
+    if report["errors"] or report["rejected"]:
+        problems.append(f"errors {report['errors']}, rejected "
+                        f"{report['rejected']}")
+    if report["nonfinite"]:
+        problems.append(f"{report['nonfinite']} non-finite flows")
+    rung_programs = sum(rungs for _, rungs, _ in programs)
+    expected = _expect(convex_combine_8x=rung_programs
+                       + len(report["warmup"]))
+    if counts != expected:
+        problems.append(f"launches {counts}, expected {expected} (rung "
+                        "programs + warm-up)")
+    classes = report.get("classes", {})
+    its = {k: sorted(c["iterations"]) for k, c in classes.items()}
+    if sorted(classes) != ["balanced", "fast", "quality"] \
+            or its["fast"] != [4] or its["quality"] != [12] \
+            or not all(4 <= i <= 12 for i in its["balanced"]):
+        problems.append(f"class iterations {its}")
+    if tf32_after != tf32_before:
+        problems.append(f"TF32 switches {tf32_before} before the run, "
+                        f"{tf32_after} after")
+
+    # request 0 is the fast class's (classes cycle fast, balanced,
+    # quality): its quantized 4-iteration rung in-process
+    served = report["results"][0]
+    spec = models.load(config.load(SERVE_EXAMPLE.parent / shipped["model"]))
+    spec.model.init(torch.Generator().manual_seed(0), "cuda")
+    wire = WireFormat.from_config("u8", clip=spec.input.clip,
+                                  range=spec.input.range)
+    raw = loadgen.synthetic_pair(buckets[0], np.random.default_rng(0))
+    pair = [torch.from_numpy(np.repeat(wire.decode_images_host(
+        wire.encode_image(x))[None], batch, 0)).cuda() for x in raw]
+    quant_flow, _ = evaluation.make_rung_fn(spec.model, 4, quant="u8")(*pair)
+    plain_flow, _ = evaluation.make_rung_fn(spec.model, 4)(*pair)
+    quant_flow, plain_flow = (f[0].cpu().numpy() for f in (quant_flow,
+                                                            plain_flow))
+    scale = float(np.abs(quant_flow).max())
+    diff = float(np.abs(served.flow - quant_flow).max())
+    effect = float(np.abs(quant_flow - plain_flow).max())
+    if served.klass != "fast" or served.iterations != 4:
+        problems.append(f"request 0 ran {served.klass} at "
+                        f"{served.iterations} iterations")
+    if not diff <= LADDER_FAST_REL * scale:
+        problems.append(f"fast request 0 is {diff} px from its in-process "
+                        f"quantized rung (bound {LADDER_FAST_REL} of "
+                        f"{scale} px)")
+    if not effect > 0:
+        problems.append("the quantized rung equals the plain one")
+    balanced_rungs = {}
+    for klass, rungs, _ in programs:
+        if klass == "balanced":
+            balanced_rungs[rungs] = balanced_rungs.get(rungs, 0) + 1
+    return dict(
+        command="main serve -c cfg/serve/example.yaml "
+                + " ".join(LADDER_SERVE),
+        buckets=shipped["buckets"], batch=batch, requests=requests,
+        completed=report["completed"], batches=report["batches"],
+        rung_programs=rung_programs, warmup_records=len(report["warmup"]),
+        launches=counts["convex_combine_8x"],
+        balanced_batches_by_rungs=balanced_rungs,
+        p50_ms=report["p50_ms"], p99_ms=report["p99_ms"],
+        pairs_per_sec=report["pairs_per_sec"], spans_ms=report["spans_ms"],
+        classes=classes, tf32=dict(before=tf32_before, after=tf32_after),
+        warmup=report["warmup"],
+        fast_request0=dict(max_abs_diff_px=diff,
+                           bound_px=LADDER_FAST_REL * scale,
+                           max_abs_flow_px=scale, quant_effect_px=effect),
+        card=card), problems, counts
+
+
+def phase_ladder(card):
+    """The iteration ladder on the card: chained rungs bit for bit against
+    the monolithic rung (raft card vs CPU and TF32 too; ctf-l3, raft/fs,
+    sl), then the shipped serve config with ``--ladder 4,8,12 --quant
+    u8``."""
+    models_readings, problems = _ladder_models(card)
+    emit(phase="ladder-models", models=models_readings, card=card)
+    serve_readings, serve_problems, counts = _ladder_serve(card)
+    emit(phase="ladder-serve", **serve_readings)
+    problems += [f"serve: {m}" for m in serve_problems]
+    if problems:
+        raise AssertionError("ladder phase: " + "; ".join(problems))
+    return {"ladder_serve": counts, **{
+        f"ladder_{name}": {k: sum(c.get(k, 0) for runs in r["launches"]
+                                  .values() for c in runs)
+                           for k in _expect()}
+        for name, r in models_readings.items()}}
+
+
+
 def kernels_line(results):
     """The nine kernels with their checks, times and launches.
     ``launches`` is the count of the main path of the slice that ported
@@ -5064,6 +5417,7 @@ def kernels_line(results):
         **results["phase_recovery"],
         **results["phase_dicl"],
         **results["phase_zoo"],
+        **results["phase_ladder"],
     }
 
     def launches(name):
@@ -5317,7 +5671,8 @@ def main():
               phase_fs_serve, phase_fs_train_step, phase_fs_train,
               phase_fs_train_all_levels, phase_lookup_kernels, phase_quant,
               phase_lifecycle, phase_augmented_train, phase_evaluate,
-              phase_wire_env, phase_recovery, phase_dicl, phase_zoo)
+              phase_wire_env, phase_recovery, phase_dicl, phase_zoo,
+              phase_ladder)
     for phase in phases:
         run(phase)
     if failed:

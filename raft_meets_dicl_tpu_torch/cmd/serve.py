@@ -6,14 +6,21 @@ weights, or a checkpoint's: ``--checkpoint`` or the config's
 ``checkpoint`` key, relative to the config file; one warm-up batch per
 bucket), runs the built-in open-loop load
 generator against the scheduler and prints the report (p50/p99 latency,
-pairs/s, shed/error counts) as JSON.
+pairs/s, shed/error counts; with ``--ladder``, the per-class breakdown)
+as JSON.
 
 Precedence: CLI flag > config file (``serve:`` section) > default; the
 wire format (``--wire-format``, the config's ``wire-format`` key) then
-falls back to ``RMD_WIRE_FORMAT``, as in JAX. ``cfg/serve/example.yaml``
-serves as it ships (u8 wire). The device is ``cuda`` unless ``--device
-cpu`` is given; without CUDA the command fails rather than running on the
-CPU.
+falls back to ``RMD_WIRE_FORMAT``, the ladder's rungs given bare
+(``--ladder``, ``ladder: true``) to ``RMD_LADDER``, its threshold to
+``RMD_LADDER_THRESHOLD`` and the quantized tier (``--quant``, the
+config's ``quant`` key) to ``RMD_QUANT``, as in JAX. With a ladder the
+built-in client cycles the latency classes ``fast``, ``balanced`` and
+``quality`` over its requests. ``cfg/serve/example.yaml`` serves as it
+ships (u8 wire), with ``--ladder 4,8,12 --quant u8`` too. The ``video``
+key is refused (ROADMAP slice 7 item 2). The device is ``cuda`` unless
+``--device cpu`` is given; without CUDA the command fails rather than
+running on the CPU.
 """
 
 import json
@@ -57,11 +64,10 @@ def serve(args):
         cfg = utils.config.load(args.config)
         cfg = cfg.get("serve", cfg)
 
-    for key in ("ladder", "video", "quant"):
-        if cfg.get(key):
-            raise NotImplementedError(
-                f"serve config key '{key}' is not ported yet (ROADMAP "
-                "queue A)")
+    if cfg.get("video"):
+        raise NotImplementedError(
+            "serve config key 'video' is not ported yet (ROADMAP slice 7 "
+            "item 2)")
 
     model_src = getattr(args, "model", None)
     if model_src is None:
@@ -95,14 +101,31 @@ def serve(args):
     checkpoint = getattr(args, "checkpoint", None)
     if checkpoint is None and cfg.get("checkpoint") is not None:
         checkpoint = _resolve(cfg["checkpoint"], getattr(args, "config", None))
+
+    ladder_spec = _pick(getattr(args, "ladder", None), cfg, "ladder")
+    ladder = None
+    if ladder_spec:
+        ladder = serving.LadderSpec.from_config(
+            ladder_spec, threshold=_pick(
+                getattr(args, "ladder_threshold", None), cfg,
+                "ladder-threshold"))
+        logging.info(f"iteration ladder: {ladder.describe()}")
+    quant = _pick(getattr(args, "quant", None), cfg, "quant",
+                  utils.env.get_str("RMD_QUANT"))
+    if quant:
+        logging.info(f"quantized matching tier: {quant} (fast class)")
+
     session = serving.ServeSession(spec, buckets, wire=wire,
                                    checkpoint=checkpoint,
-                                   batch_size=batch_size, device=args.device)
+                                   batch_size=batch_size, ladder=ladder,
+                                   quant=quant, device=args.device)
 
     warmup = session.warm_pool()
     for o in warmup:
+        rung = f" rung {o['rung']}" if "rung" in o else ""
         logging.info(f"warm-up: {o['model']} bucket {o['bucket']} batch "
-                     f"{o['batch']} on {o['device']} ({o['seconds']:.2f} s)")
+                     f"{o['batch']}{rung} on {o['device']} "
+                     f"({o['seconds']:.2f} s)")
 
     scheduler = serving.Scheduler(
         session, batch_size=batch_size,
@@ -119,12 +142,15 @@ def serve(args):
 
     requests = int(_pick(args.requests, cfg, "requests"))
     rate = float(_pick(args.rate, cfg, "rate"))
+    classes = list(serving.CLASSES) if ladder is not None else None
     logging.info(f"open-loop load: {requests} requests at {rate}/s over "
-                 f"{len(shapes)} shapes")
+                 f"{len(shapes)} shapes"
+                 + (f", classes {'/'.join(classes)}" if classes else ""))
 
     try:
         report = serving.loadgen.run_open_loop(
-            scheduler, shapes, requests=requests, rate_hz=rate)
+            scheduler, shapes, requests=requests, rate_hz=rate,
+            classes=classes)
     finally:
         scheduler.stop(drain=True)
     results = report.pop("results")
@@ -134,10 +160,17 @@ def serve(args):
     report["batches_by_bucket"] = dict(scheduler.batches_by_bucket)
     report["warmup"] = warmup
     report["wire"] = wire.describe() if wire is not None else None
+    report["ladder"] = ladder.describe() if ladder is not None else None
+    report["quant"] = session.quant
 
     logging.info(
         f"served {report['completed']}/{report['requests']} requests: "
         f"p50 {report['p50_ms']:.1f} ms, p99 {report['p99_ms']:.1f} ms, "
         f"{report['pairs_per_sec']:.2f} pairs/s")
+    for name, c in report.get("classes", {}).items():
+        logging.info(
+            f"class {name}: {c['completed']} requests, p50 "
+            f"{c['p50_ms']:.1f} ms, p99 {c['p99_ms']:.1f} ms, iterations "
+            f"{c['iterations']}")
     print(json.dumps(report))
     return report | {"results": results}

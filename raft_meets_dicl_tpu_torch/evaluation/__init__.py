@@ -7,24 +7,30 @@ final_flow)`` under ``torch.inference_mode()`` on the device the model
 lives on; validation (``inspect.summary.make_val_step``), serving and
 ``evaluate`` run it. With a wire format (``models.wire.WireFormat``) the
 step takes the images as they crossed the host→device copy and decodes
-them first. ``warmup_eval_fn`` runs it once per shape on zero images of
-the wire's dtype. ``evaluate`` yields one ``EvalSample`` per dataset
-sample, with one batch in flight, and ``EvalRunStats`` accounts a sweep
-(``main evaluate``, ``cmd/eval.py``).
+them first. ``make_rung_fn(model, iterations, cont)`` returns the
+iteration ladder's rung step, which also returns the ``(flow, hidden)``
+carry and the convergence norm ``delta`` (``serve.ServeSession``).
+``evaluate`` yields one ``EvalSample`` per dataset sample, with one batch
+in flight, and ``EvalRunStats`` accounts a sweep (``main evaluate``,
+``cmd/eval.py``).
 
 Left out of the JAX module: the compile counters (``compiles``, the
-program registry and AOT store: eager PyTorch compiles no programs), the
-telemetry ``emit`` (ROADMAP slice 7's ops plane), meshes, and the rung
-and video programs (``make_rung_fn``, ``make_warm_fn``: slice 7's ladder
-and video).
+program registry and AOT store: eager PyTorch compiles no programs, so a
+step is a plain closure and there is no cache of built programs either),
+the telemetry ``emit`` (ROADMAP slice 7's ops plane), meshes, and the
+video program (``make_warm_fn``: slice 7's video).
 """
 
 import contextlib
+import inspect
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 
 import torch
+
+from ..ops import quant as quant_ops
+from ..utils import env
 
 
 def make_eval_fn(model, model_args=None, wire=None):
@@ -46,22 +52,71 @@ def make_eval_fn(model, model_args=None, wire=None):
     return step
 
 
-def warmup_eval_fn(eval_fn, shapes, batch_size, device, wire=None):
-    """One forward of ``eval_fn`` per ``(H, W)`` in ``shapes`` at
-    ``batch_size``, on zero images in the wire's image dtype (float32
-    without one), so that the kernels build and the convolution library
-    picks its algorithms before the first real batch. Returns the seconds
-    each took, by shape."""
-    dtype = wire.image_dtype() if wire is not None else torch.float32
-    seconds = {}
-    for h, w in shapes:
-        img = torch.zeros((batch_size, h, w, 3), dtype=dtype, device=device)
-        t0 = time.perf_counter()
-        eval_fn(img, img)
-        if torch.device(device).type == "cuda":
-            torch.cuda.current_stream(device).synchronize()
-        seconds[(h, w)] = time.perf_counter() - t0
-    return seconds
+#: the forward arguments a rung step sets itself
+_RUNG_RESERVED = ("iterations", "flow_init", "hidden_init", "return_state",
+                  "quant", "quant_clip")
+
+
+def make_rung_fn(model, iterations, cont=False, wire=None, model_args=None,
+                 quant=None):
+    """The iteration ladder's rung step: a fixed-``iterations`` inference
+    step that returns the continuation carry beside the final flow.
+
+    - ``cont=False``: ``step(img1, img2) -> (final_flow, state)``, a base
+      rung starting from zero flow;
+    - ``cont=True``: ``step(img1, img2, flow, hidden) -> (final_flow,
+      state)``, a continuation rung re-entering the recurrence from a
+      previous rung's carry (bit for bit: the models carry flow, not
+      coords, across iterations).
+
+    ``state`` is ``{"flow", "hidden", "delta"}``: the coarse carry, left on
+    the device for the next rung, and the per-sample convergence norm the
+    host reads between rungs. ``quant`` (``u8``/``i8``, ``ops.quant``) runs
+    the rung on quantized correlation volumes, with the clip ratio
+    ``RMD_QUANT_CLIP`` read when the step is built; a model whose forward
+    takes no ``quant`` refuses it here. The step sets ``.iterations``,
+    ``.cont`` and ``.quant``. Like ``make_eval_fn`` it runs under
+    ``torch.inference_mode()``, with the wire's decode first."""
+    iterations = int(iterations)
+    cont = bool(cont)
+    quant = quant_ops.normalize_mode(quant)
+    model_args = dict(model_args or {})
+    for reserved in _RUNG_RESERVED:
+        model_args.pop(reserved, None)
+    forward_args = dict(model_args, iterations=iterations, return_state=True)
+    if quant is not None:
+        if "quant" not in inspect.signature(model.module.forward).parameters:
+            raise ValueError(
+                f"model '{model.type}' has no quantized matching tier: a "
+                f"'{quant}' rung needs raft/baseline or raft/fs")
+        forward_args["quant"] = quant
+        forward_args["quant_clip"] = float(env.get_float("RMD_QUANT_CLIP"))
+    adapter = model.get_adapter()
+
+    def forward(img1, img2, flow, hidden):
+        with torch.inference_mode():
+            if wire is not None:
+                img1, img2, _, _ = wire.decode(img1, img2)
+            kwargs = dict(forward_args)
+            if flow is not None:
+                kwargs["flow_init"] = flow
+            if hidden is not None:
+                kwargs["hidden_init"] = hidden
+            out, state = model.apply(img1, img2, train=False, **kwargs)
+            result = adapter.wrap_result(out, tuple(img1.shape[1:3]))
+            return result.final(), state
+
+    if cont:
+        def step(img1, img2, flow, hidden):
+            return forward(img1, img2, flow, hidden)
+    else:
+        def step(img1, img2):
+            return forward(img1, img2, None, None)
+
+    step.iterations = iterations
+    step.cont = cont
+    step.quant = quant
+    return step
 
 
 @dataclass

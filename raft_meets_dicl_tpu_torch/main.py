@@ -16,7 +16,8 @@ Counterpart of ``raft_meets_dicl_tpu/main.py``; ``train``, ``evaluate``,
         [-f DIR --flow-format FORMAT] [--buckets group|HxW,...] \
         [--fwbw] [--iterations N] [--device cpu]
     python -m raft_meets_dicl_tpu_torch.main serve -c serve.yaml \
-        [--checkpoint FILE] [--device cpu]
+        [--checkpoint FILE] [--ladder [RUNGS]] [--ladder-threshold X] \
+        [--quant [u8|i8|off]] [--device cpu]
     python -m raft_meets_dicl_tpu_torch.main checkpoint info FILE|DIR \
         [--sort EXPRS]
     python -m raft_meets_dicl_tpu_torch.main checkpoint trim DIR \
@@ -28,9 +29,9 @@ CPU.
 
 ``serve.yaml`` holds a ``serve:`` section with ``model``, ``buckets`` and
 optionally ``checkpoint``, ``wire-format``, ``batch-size``,
-``max-wait-ms``, ``queue-limit``, ``requests`` and ``rate``
-(``cfg/serve/example.yaml`` serves as it ships); the keys of parts not
-ported yet (``ladder``, ``video``, ``quant``) are refused.
+``max-wait-ms``, ``queue-limit``, ``requests``, ``rate``, ``ladder``,
+``ladder-threshold`` and ``quant`` (``cfg/serve/example.yaml`` serves as
+it ships); the ``video`` key, a part not ported yet, is refused.
 """
 
 import argparse
@@ -229,6 +230,23 @@ def build_parser():
     serve.add_argument("--rate", type=float,
                        help="built-in open-loop client: submissions/s "
                             "[default: 50]")
+    serve.add_argument("--ladder", nargs="?", const=True, metavar="RUNGS",
+                       help="serve latency classes (fast/balanced/"
+                            "quality) over an iteration ladder; optional "
+                            "ascending rung budgets, e.g. '4,8,12' "
+                            "(also: RMD_LADDER, the config's 'ladder' "
+                            "key) [default: off]")
+    serve.add_argument("--ladder-threshold", type=float,
+                       help="flow-delta norm below which the balanced "
+                            "class stops escalating (also: "
+                            "RMD_LADDER_THRESHOLD) [default: 0.1]")
+    serve.add_argument("--quant", nargs="?", const="u8",
+                       choices=["u8", "i8", "off"], metavar="MODE",
+                       help="quantized matching tier for the fast ladder "
+                            "class: correlation volumes stored u8/i8 and "
+                            "dequantized by the lookup ('u8' when given "
+                            "bare; also: RMD_QUANT, the config's 'quant' "
+                            "key) [default: off]")
     serve.add_argument("--wire-format", choices=["f32", "bf16", "u8"],
                        help="request wire format: compact image dtype "
                             "decoded in the inference step (also: the "

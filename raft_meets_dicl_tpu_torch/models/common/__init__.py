@@ -1,4 +1,5 @@
-from . import adapters, blocks, corr, encoders, grid, hsup, loss, norm, util
+from . import (adapters, blocks, carry, corr, encoders, grid, hsup, loss,
+               norm, util)
 
-__all__ = ["adapters", "blocks", "corr", "encoders", "grid", "hsup", "loss",
+__all__ = ["adapters", "blocks", "carry", "corr", "encoders", "grid", "hsup", "loss",
            "norm", "util"]

@@ -28,7 +28,10 @@ with ``corr_loss_examples``: each level's MatchingNet on self pairs and on
 pairs with a spatially permuted copy. The JAX module draws the
 permutations from ``fold_in(PRNGKey(0), i)``; this port draws them from a
 seeded ``torch.Generator`` (:func:`example_permutation`): fixed in both,
-equal in neither. The ladder argument ``flow_init`` refuses by name.
+equal in neither. ``flow_init`` seeds the coordinates as in the JAX
+module; like the JAX module, the model takes neither ``hidden_init`` nor
+``return_state`` (Python's ``TypeError`` for an unexpected keyword), so
+raft/cl rides no ladder.
 
 Names: ``fnet``, ``fnet_u`` (``out.{i}``, ``mask{5,4,3}``), ``fnet_d``
 (``out.{i}``), ``cnet``, ``corr`` (``mnet.{i}``, ``dap.{i}``),
@@ -45,6 +48,7 @@ from ...common.blocks.dicl import (
     DisplacementAwareProjection,
     MatchingNet,
 )
+from ...common.carry import upsample_iterations
 from ...common.corr.common import checkpointed
 from ...common.encoders.dicl import _CHANNELS, FeatureEncoderGa
 from ...common.encoders.raft import FeatureEncoderS3
@@ -54,7 +58,6 @@ from ...config import register_loss, register_model
 from ...model import Loss, Model, ModelAdapter, Result
 from ..raft import UpdateBlock
 from ..raft_dicl_ctf import Up8Network
-from ..raft_dicl_sl import refuse_ladder, upsample_iterations
 
 _LEVELS = 4  # 1/8 .. 1/64
 # the raw ladder's channels at 1/8 .. 1/64 (levels 2-5)
@@ -205,8 +208,8 @@ class RaftClModule(nn.Module):
     def forward(self, img1, img2, train=False, frozen_bn=False, iterations=12,
                 upnet=True, flow_init=None, corr_loss_examples=False):
         """img1, img2: (B, H, W, 3), H and W divisible by 128 (the config
-        pads to it). Returns the result dict."""
-        refuse_ladder("raft/cl", flow_init, None, False)
+        pads to it). Returns the result dict; ``flow_init`` (B, H/8, W/8,
+        2) offsets the starting coordinates."""
         hdim = self.hidden_dim
         x1, x2 = _nchw(img1), _nchw(img2)
 
@@ -224,7 +227,7 @@ class RaftClModule(nn.Module):
 
         b, hc, wc, _ = fmap1[0].shape
         coords0 = coordinate_grid(b, hc, wc, device=img1.device)
-        coords1 = coords0
+        coords1 = coords0 + flow_init if flow_init is not None else coords0
 
         def cost(coords, *maps):
             return self.corr(maps[:_LEVELS], maps[_LEVELS:], coords,

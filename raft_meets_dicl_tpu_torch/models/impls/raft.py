@@ -13,7 +13,10 @@ kernels launch once per forward and once per backward. Every iteration
 starts from the carried flow with its gradient stopped (JAX
 ``_RaftStep``: ``jax.lax.stop_gradient(flow)``); ``corr_grad_stop`` also
 stops the gradient into the lookup. There is no activation checkpointing:
-the JAX remat policy is a fit to the TPU's memory, not numerics.
+the JAX remat policy is a fit to the TPU's memory, not numerics. The
+iteration ladder's carry (``flow_init``, ``hidden_init``,
+``return_state``) is the JAX module's (``models/common/carry.py``); with
+``return_state`` only the last iteration is upsampled.
 
 Mixed precision (``mixed-precision: true``) follows the JAX policy: the
 encoders, the correlation volume and the update block compute in bf16;
@@ -33,9 +36,11 @@ from ...ops.corr import (
     lookup_pyramid_levels,
     window_delta,
 )
-from ...ops.upsample import convex_upsample_8x, interpolate_bilinear
+from ...ops.upsample import convex_upsample_8x
 from ..common import encoders
 from ..common.blocks.dicl import DisplacementAwareProjection
+from ..common.carry import (initial_flow, initial_hidden, rung_state,
+                            upsample_iterations)
 from ..common.grid import coordinate_grid
 from ..common.util import Conv2d, init_parameters
 from ..config import register_loss, register_model
@@ -255,8 +260,9 @@ class RaftModule(nn.Module):
         init_parameters(self, generator)
 
     def forward(self, img1, img2, train=False, frozen_bn=False, iterations=12,
-                upnet=True, corr_flow=False, corr_grad_stop=False,
-                mask_costs=(), quant=None, quant_clip=1.0):
+                flow_init=None, hidden_init=None, upnet=True, corr_flow=False,
+                corr_grad_stop=False, mask_costs=(), return_state=False,
+                quant=None, quant_clip=1.0):
         """img1, img2: (B, H, W, 3). Returns the list of per-iteration
         (B, H, W, 2) flows; with ``corr_flow`` also the per-level
         soft-argmax flows, coarse to fine, before it. ``train`` turns on
@@ -269,7 +275,12 @@ class RaftModule(nn.Module):
         element, ``i8`` also computes the correlation as int8 dots; the
         lookup dequantizes. ``quant_clip`` is the fraction of each level's
         abs-max the quantized range spans. None leaves the forward as it
-        is without the tier."""
+        is without the tier.
+
+        The ladder carry: ``flow_init`` (B, H/8, W/8, 2) seeds the flow,
+        ``hidden_init`` (B, H/8, W/8, C) replaces the context tanh, and
+        ``return_state`` returns ``(out, {"flow", "hidden", "delta"})``
+        with ``out`` the last iteration's upsampled flow alone."""
         hdim = self.hidden_dim
         dt = self.compute_dtype
         x1, x2 = _nchw(img1), _nchw(img2)
@@ -290,13 +301,14 @@ class RaftModule(nn.Module):
                                                      clip=quant_clip)
 
         ctx = self.cnet(x1, train, frozen_bn)
-        h = torch.tanh(ctx[:, :hdim])
+        # a continuation rung re-enters from the carried hidden state
+        h = (initial_hidden(hidden_init, ctx) if hidden_init is not None
+             else torch.tanh(ctx[:, :hdim]))
         x = F.relu(ctx[:, hdim:])
 
         b, _, hc, wc = fmap1.shape
         coords0 = coordinate_grid(b, hc, wc, device=img1.device)
-        flow = torch.zeros((b, hc, wc, 2), dtype=torch.float32,
-                           device=img1.device)
+        flow = start = initial_flow(flow_init, b, hc, wc, img1.device)
 
         flows, hiddens, corr_flows = [], [], []
         for _ in range(iterations):
@@ -318,19 +330,16 @@ class RaftModule(nn.Module):
             hiddens.append(h)
 
         # convex 8x upsampling, batched over all iterations at once
-        full_shape = tuple(img1.shape[1:3])
-        flows_flat = torch.cat(flows, dim=0)
-        if upnet:
-            flows_up = self.update_block.mask(torch.cat(hiddens, dim=0),
-                                              flows_flat)
-        else:
-            flows_up = 8.0 * interpolate_bilinear(flows_flat, full_shape)
-        out = list(flows_up.split(b, dim=0))
+        out = upsample_iterations(self.update_block.mask, hiddens, flows,
+                                  tuple(img1.shape[1:3]), upnet,
+                                  last_only=return_state)
 
         if corr_flow:
             per_level = [[corr_flows[i][lvl] for i in range(iterations)]
                          for lvl in range(self.corr_levels)]
             out = (*reversed(per_level), out)
+        if return_state:
+            return out, rung_state(flows, start, h)
         return out
 
 

@@ -20,8 +20,11 @@ The iterations are a Python loop (the JAX module's unrolled form): batch
 norm in train mode updates its statistics iteration by iteration, level by
 level, as the JAX ``unrolled`` path does. Every iteration starts from the
 carried flow with its gradient stopped; ``corr_grad_stop`` also stops the
-gradient into the cost. The ladder arguments (``flow_init``,
-``hidden_init``, ``return_state``) are not ported (ROADMAP slice 7).
+gradient into the cost. The ladder carry is the JAX module's: with
+``hidden_init`` only the finest (1/8) level runs, re-entered from the
+carried ``(flow_init, hidden_init)``; ``return_state`` returns the finest
+level's carry (``models/common/carry.py``) and upsamples only its last
+iteration.
 
 Mixed precision (``mixed-precision: true``) follows the JAX policy: the
 encoders, the matching nets and the update blocks compute in bf16 (the
@@ -34,14 +37,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ...ops.upsample import (
-    convex_upsample_8x,
-    interpolate_bilinear,
-    upsample_flow_2x,
-)
+from ...ops.upsample import convex_upsample_8x, upsample_flow_2x
 from ..common import corr as corr_mod
 from ..common import encoders, hsup
 from ..common.adapters.mlseq import MultiLevelSequenceAdapter
+from ..common.carry import (initial_flow, initial_hidden, rung_state,
+                            upsample_iterations)
 from ..common.grid import coordinate_grid
 from ..common.loss.mlseq import upsample_flow_to
 from ..common.util import Conv2d, init_parameters
@@ -179,13 +180,28 @@ class RaftPlusDiclCtfModule(nn.Module):
 
     def forward(self, img1, img2, train=False, frozen_bn=False,
                 iterations=None, dap=True, upnet=True, corr_flow=False,
-                prev_flow=False, corr_grad_stop=False):
+                prev_flow=False, corr_grad_stop=False, flow_init=None,
+                hidden_init=None, return_state=False):
         """img1, img2: (B, H, W, 3). Returns a list of per-level iteration
         lists, coarse to fine (finest level upsampled to (H, W), the others
         at their level's grid); with ``corr_flow`` each level's soft-argmax
         readouts come before its flows; with ``prev_flow`` entries become
         (flow the iteration started from, flow) pairs. ``iterations`` is
-        per level, coarse to fine; an int sets the finest level's count."""
+        per level, coarse to fine; an int sets the finest level's count.
+
+        The ladder carry: with ``hidden_init`` (B, H/8, W/8, C) only the
+        finest level runs, from ``flow_init`` (or zeros); ``return_state``
+        returns ``(out, {"flow", "hidden", "delta"})`` of the finest level,
+        its last iteration alone upsampled."""
+        # ladder continuation: only the finest level runs, re-entered from
+        # the previous rung's carry (coarse levels keep their defaults — a
+        # continuation never re-runs them)
+        cont = hidden_init is not None
+        if flow_init is not None and not cont:
+            raise ValueError(
+                "ctf models take flow_init only together with hidden_init "
+                "(a continuation rung at the finest level); the coarse "
+                "pyramid has no seeding protocol")
         if iterations is None:
             iterations = _DEFAULT_ITERATIONS[self.levels]
         elif isinstance(iterations, int):
@@ -209,6 +225,8 @@ class RaftPlusDiclCtfModule(nn.Module):
         h_state = None
         for li, lvl in enumerate(self.level_ids):
             finest = li == self.levels - 1
+            if cont and not finest:
+                continue
             fine_idx = lvl - 3  # index into the finest-first feature tuples
             lh, lw = h // 2**lvl, w // 2**lvl
 
@@ -217,7 +235,10 @@ class RaftPlusDiclCtfModule(nn.Module):
             update = self._level("update_block", lvl, self.share_rnn)
 
             coords0 = coordinate_grid(b, lh, lw, device=img1.device)
-            if flow is None:
+            if cont:
+                flow = initial_flow(flow_init, b, lh, lw, img1.device)
+                h_state = initial_hidden(hidden_init, hidden[fine_idx])
+            elif flow is None:
                 flow = torch.zeros((b, lh, lw, 2), dtype=torch.float32,
                                    device=img1.device)
                 h_state = hidden[fine_idx]
@@ -226,6 +247,7 @@ class RaftPlusDiclCtfModule(nn.Module):
                 hup = self._level("upnet_h", lvl,
                                   self.share_rnn or self.levels == 2)
                 h_state = hup(h_state, hidden[fine_idx])
+            entry_flow = flow
             x = context[fine_idx]
             # NHWC-contiguous once per level: the sampler kernel reads f2 in
             # place, and f1's NCHW view is then channels_last
@@ -251,22 +273,21 @@ class RaftPlusDiclCtfModule(nn.Module):
 
             if finest:
                 # convex 8x upsampling, batched over the level's iterations
-                flows_flat = torch.cat(flows, dim=0)
-                if upnet:
-                    ups = self.upnet(torch.cat(hiddens, dim=0), flows_flat)
-                else:
-                    ups = 8.0 * interpolate_bilinear(flows_flat, (h, w))
-                out_lvl = list(ups.split(b, dim=0))
+                out_lvl = upsample_iterations(self.upnet, hiddens, flows,
+                                              (h, w), upnet,
+                                              last_only=return_state)
             else:
                 out_lvl = flows
 
             if prev_flow:
-                out_lvl = list(zip(prevs, out_lvl))
+                out_lvl = list(zip(prevs[-len(out_lvl):], out_lvl))
             if corr_flow:
                 out.append(list(zip(prevs, readouts)) if prev_flow
                            else readouts)
             out.append(out_lvl)
 
+        if return_state:
+            return out, rung_state(flows, entry_flow, h_state)
         return out
 
 

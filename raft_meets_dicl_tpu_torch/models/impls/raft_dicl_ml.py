@@ -25,8 +25,10 @@ Names (``convert.ml_rules``): ``fnet`` (the s3 base), ``stack`` and
 ``pyramid`` (``out{i}`` heads: ``conv1``, ``norm1``, ``conv2``;
 ``res{i}`` residual blocks), ``cnet``, ``corr`` (``mnet_{i}`` or ``mnet``,
 ``dap_{i}`` or ``dap``, ``dap_full``), ``corr_reg`` (the raft readout,
-``dap.{i}``), ``update_block``, ``upnet``. The ladder arguments refuse by
-name (ROADMAP slice 7 item 1).
+``dap.{i}``), ``update_block``, ``upnet``. The ladder carry
+(``flow_init``, ``hidden_init``, ``return_state``) is the JAX module's
+(``models/common/carry.py``); with ``return_state`` only the last
+iteration is upsampled.
 """
 
 import torch
@@ -36,6 +38,8 @@ import torch.nn.functional as F
 from ...ops.pool import avg_pool2d, max_pool2d
 from ..common.blocks.dicl import DisplacementAwareProjection, MatchingNet
 from ..common.blocks.raft import ResidualBlock
+from ..common.carry import (initial_flow, initial_hidden, rung_state,
+                            upsample_iterations)
 from ..common.corr.common import checkpointed, sample_window_fast
 from ..common.encoders.raft import FeatureEncoderS3
 from ..common.grid import coordinate_grid
@@ -45,7 +49,6 @@ from ..config import register_model
 from ..model import Model, ModelAdapter
 from .raft import RaftAdapter, UpdateBlock, make_flow_regression
 from .raft_dicl_ctf import Up8Network
-from .raft_dicl_sl import refuse_ladder, upsample_iterations
 
 
 def _nchw(x):
@@ -260,8 +263,9 @@ class RaftPlusDiclMlModule(nn.Module):
                 return_state=False):
         """img1, img2: (B, H, W, 3). Returns the per-iteration (B, H, W, 2)
         flows; with ``corr_flow`` each level's soft-argmax flows first,
-        coarse to fine, then the flows."""
-        refuse_ladder("raft+dicl/ml", flow_init, hidden_init, return_state)
+        coarse to fine, then the flows. The ladder carry is
+        raft/baseline's: ``flow_init``, ``hidden_init`` and
+        ``return_state``."""
         hdim = self.hidden_dim
         levels = self.corr_levels
         k = 2 * self.corr_radius + 1
@@ -269,13 +273,13 @@ class RaftPlusDiclMlModule(nn.Module):
 
         fmap1, fmap2 = self._features(x1, x2, train, frozen_bn)
         ctx = self.cnet(x1, train, frozen_bn)
-        h = torch.tanh(ctx[:, :hdim])
+        h = (initial_hidden(hidden_init, ctx) if hidden_init is not None
+             else torch.tanh(ctx[:, :hdim]))
         x = F.relu(ctx[:, hdim:])
 
         b, hc, wc, _ = fmap1[0].shape
         coords0 = coordinate_grid(b, hc, wc, device=img1.device)
-        flow = torch.zeros((b, hc, wc, 2), dtype=torch.float32,
-                           device=img1.device)
+        flow = start = initial_flow(flow_init, b, hc, wc, img1.device)
         mask_costs = tuple(mask_costs)
 
         def cost(coords, *fmaps):
@@ -304,11 +308,14 @@ class RaftPlusDiclMlModule(nn.Module):
             hiddens.append(h)
 
         out = upsample_iterations(self.upnet, hiddens, flows,
-                                  tuple(img1.shape[1:3]), upnet)
+                                  tuple(img1.shape[1:3]), upnet,
+                                  last_only=return_state)
         if corr_flow:
             per_level = [[cf[lvl] for cf in corr_flows]
                          for lvl in range(levels)]
             out = [*reversed(per_level), out]  # coarse to fine, then final
+        if return_state:
+            return out, rung_state(flows, start, h)
         return out
 
 

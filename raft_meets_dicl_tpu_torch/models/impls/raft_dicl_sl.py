@@ -21,17 +21,19 @@ Names: ``fnet``, ``cnet``, ``corr``, ``flow_reg``, ``update_block``,
 ``upnet`` (``convert.sl_rules``). Mixed precision follows the JAX policy
 (encoders, matching nets and update block in bf16, costs and flows
 float32); the JAX module builds it with the ``raft`` encoders only, and
-so does this one. The ladder arguments (``flow_init``, ``hidden_init``,
-``return_state``) refuse by name (ROADMAP slice 7 item 1).
+so does this one. The ladder carry (``flow_init``, ``hidden_init``,
+``return_state``) is the JAX module's (``models/common/carry.py``); with
+``return_state`` only the last iteration is upsampled.
 """
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ...ops.upsample import interpolate_bilinear
 from ..common import corr as corr_mod
 from ..common import encoders
+from ..common.carry import (initial_flow, initial_hidden, rung_state,
+                            upsample_iterations)
 from ..common.corr.common import checkpointed
 from ..common.grid import coordinate_grid
 from ..common.util import init_parameters
@@ -49,30 +51,6 @@ def _nchw(x):
 
 def _nhwc(x):
     return x.permute(0, 2, 3, 1)
-
-
-def refuse_ladder(model, flow_init, hidden_init, return_state):
-    """The ladder carry is not ported: refuse its arguments by name."""
-    for name, value in (("flow_init", flow_init),
-                        ("hidden_init", hidden_init),
-                        ("return_state", return_state or None)):
-        if value is not None:
-            raise NotImplementedError(
-                f"{model}: '{name}' is not ported yet (ROADMAP slice 7 "
-                "item 1, the ladder)")
-
-
-def upsample_iterations(upnet, hiddens, flows, shape, use_upnet):
-    """Convex 8x upsampling of every iteration's flow at once (the kernel
-    launches once), or 8x bilinear without the head; one (B, H, W, 2) per
-    iteration."""
-    b = flows[0].shape[0]
-    flows_flat = torch.cat(flows, dim=0)
-    if use_upnet:
-        ups = upnet(torch.cat(hiddens, dim=0), flows_flat)
-    else:
-        ups = 8.0 * interpolate_bilinear(flows_flat, shape)
-    return list(ups.split(b, dim=0))
 
 
 class RaftPlusDiclModule(nn.Module):
@@ -131,8 +109,8 @@ class RaftPlusDiclModule(nn.Module):
                 flow_init=None, hidden_init=None, return_state=False):
         """img1, img2: (B, H, W, 3). Returns the per-iteration (B, H, W, 2)
         flows; with ``corr_flow`` ``[readouts, flows]``, the readouts the
-        soft-argmax flows at 1/8."""
-        refuse_ladder("raft+dicl/sl", flow_init, hidden_init, return_state)
+        soft-argmax flows at 1/8. The ladder carry is raft/baseline's:
+        ``flow_init``, ``hidden_init`` and ``return_state``."""
         hdim = self.hidden_dim
         x1, x2 = _nchw(img1), _nchw(img2)
 
@@ -143,13 +121,13 @@ class RaftPlusDiclModule(nn.Module):
         fmap2 = _nhwc(fmap2).float().contiguous()
 
         ctx = self.cnet(x1, train, frozen_bn)
-        h = torch.tanh(ctx[:, :hdim])
+        h = (initial_hidden(hidden_init, ctx) if hidden_init is not None
+             else torch.tanh(ctx[:, :hdim]))
         x = F.relu(ctx[:, hdim:])
 
         b, hc, wc, _ = fmap1.shape
         coords0 = coordinate_grid(b, hc, wc, device=img1.device)
-        flow = torch.zeros((b, hc, wc, 2), dtype=torch.float32,
-                           device=img1.device)
+        flow = start = initial_flow(flow_init, b, hc, wc, img1.device)
 
         def cost(f1, f2, coords):
             return self.corr(f1, f2, coords, dap=dap, train=train,
@@ -175,9 +153,12 @@ class RaftPlusDiclModule(nn.Module):
             hiddens.append(h)
 
         out = upsample_iterations(self.upnet, hiddens, flows,
-                                  tuple(img1.shape[1:3]), upnet)
+                                  tuple(img1.shape[1:3]), upnet,
+                                  last_only=return_state)
         if corr_flow:
             out = [readouts, out]
+        if return_state:
+            return out, rung_state(flows, start, h)
         return out
 
 

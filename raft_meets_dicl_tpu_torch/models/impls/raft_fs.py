@@ -22,8 +22,9 @@ The GRU iterations are a Python loop that starts each iteration from the
 carried flow with its gradient stopped; the convex 8x upsampling runs once
 per forward over all iterations. There is no activation checkpointing (the
 JAX ``nn.remat`` fits the TPU's memory, not the numerics). The ladder
-arguments (``flow_init``, ``hidden_init``, ``return_state``) are not
-ported (ROADMAP slice 7). ``quant`` (the quantized matching tier,
+carry (``flow_init``, ``hidden_init``, ``return_state``) is the JAX
+module's (``models/common/carry.py``), with ``quant`` or without; with
+``return_state`` only the last iteration is upsampled. ``quant`` (the quantized matching tier,
 ``ops.quant``) stores the materialized coarse suffix of volumes at one
 byte an element; the windowed prefix has no volume to quantize, so both
 modes are storage quantization here, as in the JAX module.
@@ -45,10 +46,11 @@ from ...ops.corr import (
     lookup_pyramid_levels,
 )
 from ...ops.pool import avg_pool2d
-from ...ops.upsample import interpolate_bilinear
 from ...ops.windowed import windowed_corr_pyramid
 from ...utils import env
 from ..common import encoders
+from ..common.carry import (initial_flow, initial_hidden, rung_state,
+                            upsample_iterations)
 from ..common.grid import coordinate_grid
 from ..common.util import init_parameters
 from ..config import register_model
@@ -131,14 +133,10 @@ class RaftFsModule(nn.Module):
         statistics, ``frozen_bn`` keeps batch norm on its running
         statistics while training. ``quant`` (``u8``/``i8``, inference
         only) quantizes the volume levels, ``quant_clip`` the fraction of
-        each level's abs-max the quantized range spans."""
-        for name, value in (("flow_init", flow_init),
-                            ("hidden_init", hidden_init),
-                            ("return_state", return_state or None)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"raft/fs: '{name}' is not ported yet (ROADMAP slice 7)")
-
+        each level's abs-max the quantized range spans. The ladder carry
+        is raft/baseline's: ``flow_init``, ``hidden_init`` and
+        ``return_state`` (``(out, {"flow", "hidden", "delta"})``, ``out``
+        the last iteration's upsampled flow alone)."""
         hdim = self.hidden_dim
         dt = self.compute_dtype
         levels = self.corr_levels
@@ -171,12 +169,12 @@ class RaftFsModule(nn.Module):
                                                  clip=quant_clip)
 
         ctx = self.cnet(x1, train, frozen_bn)
-        h = torch.tanh(ctx[:, :hdim])
+        h = (initial_hidden(hidden_init, ctx) if hidden_init is not None
+             else torch.tanh(ctx[:, :hdim]))
         x = F.relu(ctx[:, hdim:])
 
         coords0 = coordinate_grid(b, hc, wc, device=img1.device)
-        flow = torch.zeros((b, hc, wc, 2), dtype=torch.float32,
-                           device=img1.device)
+        flow = start = initial_flow(flow_init, b, hc, wc, img1.device)
 
         flows, hiddens = [], []
         for _ in range(iterations):
@@ -205,14 +203,12 @@ class RaftFsModule(nn.Module):
             hiddens.append(h)
 
         # convex 8x upsampling, batched over all iterations at once
-        full_shape = tuple(img1.shape[1:3])
-        flows_flat = torch.cat(flows, dim=0)
-        if upnet:
-            flows_up = self.update_block.mask(torch.cat(hiddens, dim=0),
-                                              flows_flat)
-        else:
-            flows_up = 8.0 * interpolate_bilinear(flows_flat, full_shape)
-        return list(flows_up.split(b, dim=0))
+        out = upsample_iterations(self.update_block.mask, hiddens, flows,
+                                  tuple(img1.shape[1:3]), upnet,
+                                  last_only=return_state)
+        if return_state:
+            return out, rung_state(flows, start, h)
+        return out
 
 
 @register_model

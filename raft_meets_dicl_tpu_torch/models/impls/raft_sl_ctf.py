@@ -36,13 +36,13 @@ from ...ops.corr import (
 from ...ops.upsample import upsample_flow_2x
 from ..common import hsup
 from ..common.adapters.mlseq import MultiLevelSequenceAdapter
+from ..common.carry import upsample_iterations
 from ..common.grid import coordinate_grid
 from ..common.util import init_parameters
 from ..config import register_model
 from ..model import Model, ModelAdapter
 from .raft import UpdateBlock, make_flow_regression
 from .raft_dicl_ctf import _DEFAULT_ITERATIONS, _PYRAMIDS, Up8Network
-from .raft_dicl_sl import upsample_iterations
 
 
 def _nchw(x):

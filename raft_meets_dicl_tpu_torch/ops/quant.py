@@ -18,22 +18,24 @@ Two modes, both with per-level, per-sample symmetric scales:
   accumulation, dequantized by the product of the scales, and each level
   is requantized to i8 for storage.
 
-The int8 dot is a float32 matmul of the integer-valued operands with
-TF32 off (``_exact_f32_matmul``): every product and partial sum is an
-integer below C · 127² < 2^24 for C <= 1,040, so any summation order gives
-the int32 result exactly, on the CPU and on the card, at any shape.
-``torch._int_mm`` (Hopper's int8 tensor cores) would need 2-D operands
-padded to multiples of 8, and the coarse levels have 713 or 179 columns at
-368x496; this tier is not on a kernel path, so the plain exact form wins.
+The int8 dot is an integer GEMM (``torch._int_mm``, int8 operands and
+int32 accumulation: Hopper's int8 tensor cores on the card), so it is
+exact whatever the process's TF32 switches say and touches none of them:
+serving runs it on its dispatch thread beside other threads. On the card
+the GEMM wants 2-D operands with more than 16 rows and the contraction
+and column counts multiples of 8, so the operands are zero-padded up to
+that (the coarse levels have 713 or 179 columns at 368x496) and the
+padding cut off the result. The int32 result is returned as float32,
+exact while every value stays below 2^24: C · 127² < 2^24 for C <= 1,040.
 
 ``torch.round`` rounds half to even, as ``jnp.round`` does. No autograd
 path: training stays on the full-precision tier.
 """
 
-import contextlib
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 #: quantized-volume modes accepted by ``normalize_mode``
 MODES = ("u8", "i8")
@@ -43,6 +45,10 @@ _EPS = 1e-12
 
 # the largest channel count whose int8 dot stays exact in float32
 _EXACT_MAX_CHANNELS = (2**24 - 1) // (127 * 127)
+# the card's int8 GEMM: rows above 16, contraction and columns multiples
+# of 8
+_INT_MM_MIN_ROWS = 17
+_INT_MM_MULTIPLE = 8
 
 
 def normalize_mode(mode):
@@ -128,30 +134,29 @@ def _quantize_features(fmap, clip):
     return q, scale
 
 
-@contextlib.contextmanager
-def _exact_f32_matmul():
-    """float32 matmuls in full float32 (no TF32) for the block."""
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
-
-
 def _int8_dot(q1, q2):
-    """All-pairs int8 dot (B, H, W, H2, W2), exact as int32 accumulation,
-    returned as float32 (every value an integer below 2^24)."""
+    """All-pairs int8 dot (B, H, W, H2, W2): int32 accumulation of the
+    int8 products (``torch._int_mm``), returned as float32 (every value an
+    integer below 2^24)."""
     b, h, w, c = q1.shape
     h2, w2 = q2.shape[1:3]
     if c > _EXACT_MAX_CHANNELS:
         raise ValueError(f"int8 correlation: C = {c} exceeds the "
                          f"{_EXACT_MAX_CHANNELS} channels an exact float32 "
-                         "accumulation allows")
-    with _exact_f32_matmul():
-        acc = torch.matmul(q1.float().reshape(b, h * w, c),
-                           q2.float().reshape(b, h2 * w2, c).transpose(1, 2))
-    return acc.reshape(b, h, w, h2, w2)
+                         "result allows")
+    m, n = h * w, h2 * w2
+    a = q1.reshape(b, m, c)
+    bt = q2.reshape(b, n, c)
+    if a.is_cuda:
+        pad_c = -c % _INT_MM_MULTIPLE
+        a = F.pad(a, (0, pad_c, 0, max(_INT_MM_MIN_ROWS - m, 0)))
+        bt = F.pad(bt, (0, pad_c, 0, -n % _INT_MM_MULTIPLE))
+    acc = torch.empty((b, a.shape[1], bt.shape[1]), dtype=torch.int32,
+                      device=a.device)
+    for i in range(b):
+        # (m, C) x (C, n), the right operand column-major
+        torch._int_mm(a[i].contiguous(), bt[i].contiguous().t(), out=acc[i])
+    return acc[:, :m, :n].float().reshape(b, h, w, h2, w2)
 
 
 def correlation_pyramid_int8(fmap1, fmap2, num_levels=4, normalize=True,

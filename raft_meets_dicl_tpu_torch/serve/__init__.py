@@ -5,22 +5,26 @@
   per-bucket coalescing with deterministic batch selection (numpy-only);
 - :mod:`.scheduler` — admission, the dispatch loop, sticky per-client
   response ordering, per-request latency spans;
-- :mod:`.session` — the model replica on its device and its warm-up;
+- :mod:`.session` — the model replica on its device, its warm-up and the
+  iteration ladder's rung steps;
+- :mod:`.ladder` — the iteration ladder's latency classes (``fast``,
+  ``balanced``, ``quality``) over recurrence budgets (host policy only);
 - :mod:`.loadgen` — the open-loop synthetic load generator behind the
   ``serve`` command's built-in client.
 
-Ladder, video sessions, the quantized tier, wire formats, telemetry and
-the fleet come with later slices (ROADMAP queue A).
+Video sessions, telemetry and the fleet come with later slices (ROADMAP
+queue A).
 """
 
-from . import batcher, loadgen, scheduler, session
+from . import batcher, ladder, loadgen, scheduler, session
 from .batcher import (BucketBatcher, FlowRequest, FlowResult, ServeError,
                       ServeRejected)
+from .ladder import CLASSES, LadderSpec
 from .scheduler import Scheduler, Ticket
 from .session import ServeSession
 
 __all__ = [
-    "batcher", "loadgen", "scheduler", "session",
-    "BucketBatcher", "FlowRequest", "FlowResult", "ServeError",
-    "ServeRejected", "Scheduler", "Ticket", "ServeSession",
+    "batcher", "ladder", "loadgen", "scheduler", "session",
+    "BucketBatcher", "CLASSES", "FlowRequest", "FlowResult", "LadderSpec",
+    "ServeError", "ServeRejected", "Scheduler", "Ticket", "ServeSession",
 ]

@@ -4,9 +4,10 @@ Counterpart of ``raft_meets_dicl_tpu/serve/loadgen.py`` (``synthetic_pair``,
 ``run_open_loop``, ``summarize``). Open-loop means requests fire on a
 fixed wall-clock schedule regardless of completions — a closed loop
 self-throttles and hides queueing delay. The generator cycles through a
-mixed-resolution shape list, submits raw synthetic pairs at ``rate_hz``,
-collects every ticket, and reports p50/p99/mean latency, per-span means,
-throughput, and the shed/error counts.
+mixed-resolution shape list (and, for a ladder session, a latency-class
+list), submits raw synthetic pairs at ``rate_hz``, collects every ticket,
+and reports p50/p99/mean latency, per-span means, throughput, the
+shed/error counts and, with classes, a per-class breakdown.
 """
 
 import time
@@ -33,11 +34,13 @@ def synthetic_pair(shape, rng):
 
 
 def run_open_loop(scheduler, shapes, requests, rate_hz, client="loadgen",
-                  seed=0, result_timeout_s=120.0):
+                  seed=0, result_timeout_s=120.0, classes=None):
     """Drive ``scheduler`` with ``requests`` submissions at ``rate_hz``
-    over the (H, W) cycle ``shapes``. Returns the report dict (see
-    ``summarize``) plus ``results``, the completed ``FlowResult``s in
-    submission order; deterministic inputs for a fixed seed."""
+    over the (H, W) cycle ``shapes``; ``classes`` an optional latency-class
+    cycle (ladder sessions), request i taking ``classes[i % len]``.
+    Returns the report dict (see ``summarize``) plus ``results``, the
+    completed ``FlowResult``s in submission order; deterministic inputs
+    for a fixed seed."""
     rng = np.random.default_rng(seed)
     interval = 1.0 / float(rate_hz)
     tickets = []
@@ -50,8 +53,10 @@ def run_open_loop(scheduler, shapes, requests, rate_hz, client="loadgen",
         if delay > 0:
             time.sleep(delay)
         img1, img2 = synthetic_pair(shapes[i % len(shapes)], rng)
+        klass = classes[i % len(classes)] if classes else None
         try:
-            tickets.append(scheduler.submit(img1, img2, client=client))
+            tickets.append(scheduler.submit(img1, img2, client=client,
+                                            klass=klass))
         except ServeRejected as e:
             rejects[e.reason] = rejects.get(e.reason, 0) + 1
         except ServeError as e:
@@ -82,7 +87,7 @@ def summarize(requests, results, rejects, errors, wall_s):
         spans_ms[name] = round(1e3 * sum(vals) / len(vals), 3)
 
     completed = len(results)
-    return {
+    report = {
         "requests": requests,
         "completed": completed,
         "rejected": rejects,
@@ -95,3 +100,24 @@ def summarize(requests, results, rejects, errors, wall_s):
                     if completed else 0.0),
         "spans_ms": spans_ms,
     }
+
+    # ladder breakdown: per-class latency + executed-iterations histogram
+    by_class = {}
+    for r in results:
+        if not r.klass:
+            continue
+        c = by_class.setdefault(r.klass, {"lat": [], "iterations": {}})
+        c["lat"].append(r.spans.get("total", 0.0))
+        its = c["iterations"]
+        its[r.iterations] = its.get(r.iterations, 0) + 1
+    if by_class:
+        report["classes"] = {
+            k: {
+                "completed": len(c["lat"]),
+                "p50_ms": round(1e3 * _percentile(sorted(c["lat"]), 0.50), 3),
+                "p99_ms": round(1e3 * _percentile(sorted(c["lat"]), 0.99), 3),
+                "mean_ms": round(1e3 * sum(c["lat"]) / len(c["lat"]), 3),
+                "iterations": dict(sorted(c["iterations"].items())),
+            } for k, c in sorted(by_class.items())
+        }
+    return report

@@ -14,9 +14,13 @@ thread and block on the returned :class:`Ticket`. The invariants:
   :attr:`Scheduler.errors`, and the loop carries on.
 - **Sticky per-client ordering.** Responses release to each client in
   submission order.
+- **Latency classes.** With a session that serves an iteration ladder a
+  request names its class (``ladder.CLASSES``, ``balanced`` when unset);
+  lanes coalesce same-class requests only, and a batch runs its class's
+  ladder policy (``ServeSession.run_ladder``).
 
-Telemetry, SLO tracking, fault injection, ladder classes and video
-sessions come with later slices (ROADMAP queue A).
+Telemetry, SLO tracking, traces, fault injection and video sessions come
+with later slices (ROADMAP queue A).
 """
 
 import logging
@@ -25,6 +29,7 @@ import time
 
 import numpy as np
 
+from . import ladder as ladder_mod
 from .batcher import (BucketBatcher, FlowRequest, FlowResult, ServeError,
                       ServeRejected)
 
@@ -99,19 +104,26 @@ class Scheduler:
 
     # -- admission (caller threads) -----------------------------------------
 
-    def submit(self, img1, img2, client="default"):
+    def submit(self, img1, img2, client="default", klass=None):
         """Admit one raw (un-normalized f32 HWC) image pair.
 
+        ``klass`` picks the latency class (``ladder.CLASSES``) when the
+        session serves an iteration ladder, ``balanced`` by default;
+        requests only batch with same-class neighbours. Without a ladder
+        the class must stay unset.
+
         Returns a :class:`Ticket` on acceptance. Raises synchronously:
-        :class:`ServeError` (``malformed``/``oversized``) when the payload
-        can never be served, :class:`ServeRejected` (``queue_full``/
-        ``shutdown``) when the system sheds it.
+        :class:`ServeError` (``malformed``/``oversized``/
+        ``unknown_class``) when the payload can never be served,
+        :class:`ServeRejected` (``queue_full``/``shutdown``) when the
+        system sheds it.
         """
         t0 = time.perf_counter()
         with self._lock:
             rid = self._rid
             self._rid += 1
 
+        klass = self._validate_klass(klass)
         self._validate(img1, img2)
         h, w = int(img1.shape[0]), int(img1.shape[1])
         bucket = self.batcher.assign(h, w)
@@ -125,7 +137,7 @@ class Scheduler:
         ticket = Ticket(rid, client)
         req = FlowRequest(rid=rid, client=client, seq=0, bucket=bucket,
                           shape=(h, w), img1=e1, img2=e2, ticket=ticket,
-                          t_submit=t0)
+                          t_submit=t0, klass=klass)
 
         with self._cond:
             if self._stopping:
@@ -140,6 +152,21 @@ class Scheduler:
             self._seq[client] = req.seq + 1
             self._cond.notify()
         return ticket
+
+    def _validate_klass(self, klass):
+        has_ladder = getattr(self.session, "ladder", None) is not None
+        if klass is None:
+            return "balanced" if has_ladder else ""
+        if not has_ladder:
+            raise ServeError(
+                "unknown_class",
+                f"latency class {klass!r} needs a session with an "
+                f"iteration ladder (serve --ladder)")
+        if klass not in ladder_mod.CLASSES:
+            raise ServeError(
+                "unknown_class",
+                f"{klass!r} is not one of {'/'.join(ladder_mod.CLASSES)}")
+        return klass
 
     def _validate(self, img1, img2):
         for img in (img1, img2):
@@ -215,7 +242,11 @@ class Scheduler:
             r.spans["queue"] = t0 - r.t_enqueue
 
         img1, img2, _ = self.batcher.assemble(batch)
-        flow = self.session.run(img1, img2)
+        klass = batch[0].klass  # lanes are same-class by construction
+        if klass:
+            flow, info = self.session.run_ladder(img1, img2, klass)
+        else:
+            flow, info = self.session.run(img1, img2), None
         self.batches += 1
         key = f"{bucket[0]}x{bucket[1]}"
         self.batches_by_bucket[key] = self.batches_by_bucket.get(key, 0) \
@@ -230,7 +261,8 @@ class Scheduler:
             r.spans["device"] = t2 - t1
             self._complete(r, result=FlowResult(
                 rid=r.rid, client=r.client, bucket=bucket, shape=r.shape,
-                flow=flow[i, :h, :w, :], spans=r.spans))
+                flow=flow[i, :h, :w, :], spans=r.spans, klass=klass,
+                iterations=info["iterations"] if info else 0))
 
     # -- completion / sticky per-client release ------------------------------
 

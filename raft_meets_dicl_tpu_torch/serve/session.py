@@ -12,11 +12,24 @@ the wire dtype on the host at admission, cross to the device compact and
 are decoded there, inside the inference step; without one they are
 normalized on the host.
 
+With an iteration ladder (``ladder.LadderSpec``) the session also builds
+one rung step per ``(iterations, cont)`` program of the ladder
+(``evaluation.make_rung_fn``) and serves the latency classes through
+:meth:`ServeSession.run_ladder`. ``quant`` (``u8``/``i8``) puts the fast
+class's base rung on the quantized matching tier; continuations and the
+full budget stay at full precision, as in JAX.
+
+Left out of the JAX session: ``program_fingerprint`` and ``compiles()``
+(eager PyTorch builds no programs to fingerprint or count), the readiness
+flag of the observability plane, ``mesh`` (multi-device serving) and
+``video`` (slice 7 item 2), which refuse by name.
+
 The session runs on ``device`` ("cuda" unless the caller asks for the
 CPU); a CUDA device without CUDA raises rather than running elsewhere.
 """
 
 import logging
+import time
 
 import numpy as np
 import torch
@@ -24,13 +37,13 @@ import torch
 from .. import evaluation
 from ..models import wire as wire_
 from ..models.input import ShapeBuckets
+from ..ops import quant as quant_ops
 from ..strategy.checkpoint import Checkpoint
 
 _LATER = {
-    "mesh": "multi-device serving",
-    "ladder": "the iteration ladder",
-    "video": "video sessions",
-    "quant": "the quantized matching tier",
+    "mesh": "multi-device serving is not ported yet (ROADMAP slice 7 item "
+            "6)",
+    "video": "video sessions are not ported yet (ROADMAP slice 7 item 2)",
 }
 
 
@@ -42,17 +55,16 @@ class ServeSession:
     ``WireFormat`` (bound to the model's clip/range here). Submitted
     images are raw un-normalized f32; :meth:`encode_image` encodes them to
     the wire dtype, or without a wire format normalizes them, on the host.
+    ``ladder`` an optional ``LadderSpec`` and ``quant`` the fast class's
+    quantized tier (``u8``/``i8``; needs a ladder to reach a request).
     """
 
     def __init__(self, spec, buckets, wire=None, checkpoint=None,
                  batch_size=4, mesh=None, ladder=None, video=False,
                  quant=None, device="cuda"):
-        for name, value in (("mesh", mesh), ("ladder", ladder),
-                            ("video", video), ("quant", quant)):
+        for name, value in (("mesh", mesh), ("video", video)):
             if value:
-                raise NotImplementedError(
-                    f"serving with {_LATER[name]} is not ported yet "
-                    "(ROADMAP queue A)")
+                raise NotImplementedError(f"serving: {_LATER[name]}")
 
         buckets = ShapeBuckets.from_config(buckets) \
             if not isinstance(buckets, ShapeBuckets) else buckets
@@ -80,6 +92,18 @@ class ServeSession:
                 "run on the CPU")
         self._init_variables(checkpoint)
         self.eval_fn = evaluation.make_eval_fn(self.model, wire=wire)
+
+        # one rung step per (iterations, cont) program of the ladder; only
+        # the base rung takes the quantized tier
+        self.ladder = ladder
+        self.quant = quant_ops.normalize_mode(quant)
+        self._rung_fns = {}
+        if ladder is not None:
+            for its, cont in ladder.programs():
+                q = self.quant if (not cont and its == ladder.rungs[0]) \
+                    else None
+                self._rung_fns[(its, cont)] = evaluation.make_rung_fn(
+                    self.model, its, cont=cont, wire=wire, quant=q)
 
     def _init_variables(self, checkpoint):
         # seed 0 on a CPU generator, as the JAX session's PRNGKey(0): the
@@ -112,12 +136,51 @@ class ServeSession:
         tensor (NHWC, f32) whose computation has finished: the device
         stream is synchronised, so the dispatch span covers device
         compute."""
-        x1 = wire_.as_tensor(np.ascontiguousarray(img1)).to(self.device)
-        x2 = wire_.as_tensor(np.ascontiguousarray(img2)).to(self.device)
-        _, flow = self.eval_fn(x1, x2)
+        _, flow = self.eval_fn(*self._to_device(img1, img2))
+        self._synchronize()
+        return flow
+
+    def run_ladder(self, img1, img2, klass):
+        """One batch through the ladder policy for ``klass``; returns
+        ``(flow, info)``: the final flow as a device tensor whose
+        computation has finished, and ``{"rungs", "iterations"}``.
+
+        ``fast`` and ``quality`` are one rung step each (the base rung, the
+        monolithic full budget). ``balanced`` chains continuation rungs:
+        the ``(flow, hidden)`` carry stays on the device between steps,
+        and only the per-sample ``delta`` crosses to the host, where the
+        batch's largest decides whether the next rung runs."""
+        lad = self.ladder
+        x1, x2 = self._to_device(img1, img2)
+        if klass == "quality":
+            flow, _ = self._rung_fns[(lad.rungs[-1], False)](x1, x2)
+            self._synchronize()
+            return flow, {"rungs": 1, "iterations": lad.rungs[-1]}
+
+        flow, state = self._rung_fns[(lad.rungs[0], False)](x1, x2)
+        executed, rungs = lad.rungs[0], 1
+        if klass == "balanced":
+            for inc in lad.increments():
+                # the rung decision point: the host reads the convergence
+                # norm between steps
+                if state["delta"].max().item() <= lad.threshold:
+                    break
+                flow, state = self._rung_fns[(inc, True)](
+                    x1, x2, state["flow"], state["hidden"])
+                executed += inc
+                rungs += 1
+        self._synchronize()
+        return flow, {"rungs": rungs, "iterations": executed}
+
+    def _to_device(self, img1, img2):
+        return tuple(wire_.as_tensor(np.ascontiguousarray(x)).to(self.device)
+                     for x in (img1, img2))
+
+    def _synchronize(self):
+        """The dispatch span must cover device compute: the stream is
+        synchronised before a result is handed back."""
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
-        return flow
 
     def fetch(self, flow):
         """Device flow -> host numpy (the per-request ``device`` span)."""
@@ -128,17 +191,54 @@ class ServeSession:
     def warm_pool(self):
         """Run one zero batch per bucket at the serve batch size, in the
         wire's image dtype (builds the CUDA kernels and warms the
-        convolution library before the first request). Returns one
-        outcome record per bucket."""
-        seconds = evaluation.warmup_eval_fn(
-            self.eval_fn, self.buckets.sizes, self.batch_size, self.device,
-            wire=self.wire)
-        return [{
-            "model": self.spec.id,
-            "bucket": f"{h}x{w}",
-            "wire": (self.wire.describe() if self.wire is not None
-                     else "f32 host-normalized"),
-            "batch": self.batch_size,
-            "device": str(self.device),
-            "seconds": round(seconds[(h, w)], 4),
-        } for h, w in self.buckets.sizes]
+        convolution library before the first request); with a ladder,
+        then the base rung, each continuation increment fed the base
+        rung's carry, and the full budget, in JAX's order. Returns one
+        outcome record per bucket and, with a ladder, one per (bucket,
+        rung), the rung named ``base:N``, ``cont:+N`` or ``full:N`` (and
+        its ``quant`` where set)."""
+        dtype = (self.wire.image_dtype() if self.wire is not None
+                 else torch.float32)
+        outcomes = []
+
+        def record(bucket, rung, step, run):
+            t0 = time.perf_counter()
+            out = run()
+            self._synchronize()
+            outcome = {
+                "model": self.spec.id,
+                "bucket": bucket,
+                "wire": (self.wire.describe() if self.wire is not None
+                         else "f32 host-normalized"),
+                "batch": self.batch_size,
+                "device": str(self.device),
+                "seconds": round(time.perf_counter() - t0, 4),
+            }
+            if rung is not None:
+                outcome["rung"] = rung
+            if getattr(step, "quant", None):
+                outcome["quant"] = step.quant
+            outcomes.append(outcome)
+            return out
+
+        for h, w in self.buckets.sizes:
+            bucket = f"{h}x{w}"
+            img = torch.zeros((self.batch_size, h, w, 3), dtype=dtype,
+                              device=self.device)
+            record(bucket, None, self.eval_fn,
+                   lambda: self.eval_fn(img, img))
+            if self.ladder is None:
+                continue
+            lad = self.ladder
+            base = self._rung_fns[(lad.rungs[0], False)]
+            _, state = record(bucket, f"base:{lad.rungs[0]}", base,
+                              lambda: base(img, img))
+            for inc in sorted(set(lad.increments())):
+                step = self._rung_fns[(inc, True)]
+                record(bucket, f"cont:+{inc}", step,
+                       lambda: step(img, img, state["flow"],
+                                    state["hidden"]))
+            full = self._rung_fns[(lad.rungs[-1], False)]
+            record(bucket, f"full:{lad.rungs[-1]}", full,
+                   lambda: full(img, img))
+        return outcomes

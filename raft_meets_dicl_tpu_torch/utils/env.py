@@ -43,6 +43,17 @@
   count of consecutive trips exact).
 - ``RMD_FAULT`` / ``RMD_FAULT_STATE``: fault injection
   (``testing.faults``).
+- ``RMD_LADDER``: the iteration ladder's rung budgets of ``main serve
+  --ladder`` given bare (default ``4,8,12``; ``--ladder RUNGS`` and the
+  serve config's ``ladder`` key win).
+- ``RMD_LADDER_THRESHOLD``: the flow-delta norm (coarse-grid px) below
+  which the balanced class stops escalating (default 0.1;
+  ``--ladder-threshold`` and the config's ``ladder-threshold`` win).
+- ``RMD_QUANT``: the quantized matching tier of the fast serve class
+  (``u8`` or ``i8``; unset or ``off``: full precision; ``--quant`` and the
+  config's ``quant`` key win).
+- ``RMD_QUANT_CLIP``: the fraction of each level's abs-max the quantized
+  range spans (default 1.0; values beyond it saturate).
 """
 
 import os
@@ -51,11 +62,23 @@ FS_VOLUME_GIB_DEFAULT = 4.0
 LOADER_RETRIES_DEFAULT = 2
 BAD_SAMPLE_BUDGET_DEFAULT = 16
 
+# the registered defaults of the knobs read without an explicit one (JAX's
+# ``_k`` declarations)
+_DEFAULTS = {
+    "RMD_FS_VOLUME_GIB": FS_VOLUME_GIB_DEFAULT,
+    "RMD_LADDER": "4,8,12",
+    "RMD_LADDER_THRESHOLD": 0.1,
+    "RMD_QUANT_CLIP": 1.0,
+}
 
-def get_float(name, default=FS_VOLUME_GIB_DEFAULT):
-    """The knob's value as a float, ``default`` when unset or empty."""
+
+def get_float(name, default=None):
+    """The knob's value as a float; when unset or empty, ``default``, else
+    the knob's registered default."""
     value = os.environ.get(name)
-    return default if value in (None, "") else float(value)
+    if value in (None, ""):
+        return _DEFAULTS.get(name) if default is None else default
+    return float(value)
 
 
 def get_int(name, default=0):
@@ -65,9 +88,10 @@ def get_int(name, default=0):
 
 
 def get_str(name):
-    """The knob's raw string, None when unset or empty."""
+    """The knob's raw string; its registered default (None for most) when
+    unset or empty."""
     value = os.environ.get(name)
-    return None if value in (None, "") else value
+    return _DEFAULTS.get(name) if value in (None, "") else value
 
 
 def get_bool(name):

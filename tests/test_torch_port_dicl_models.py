@@ -19,8 +19,9 @@ statistics away from their (0, 1) init).
   readouts), ctf with the other encoder families and cmods, and both DICL
   ladders; ``dicl/baseline``'s names through ``scripts/chkpt_convert.py``'s
   DICL-Flow rules and back;
-- the shipped model configs in both packages, and the ladder arguments
-  refused by name.
+- the shipped model configs in both packages, and the ladder carry's
+  round trips (``test_ladder_arguments_refuse_by_name``, named for what it
+  checked before the carry was ported).
 
 Bounds are ``test_torch_port_ctf.py``'s: F32_REL for flows (relative to
 each flow's largest |value|), STATS_ATOL for running statistics,
@@ -558,11 +559,40 @@ def test_model_configs_load_unchanged_in_both_packages(name):
 @pytest.mark.parametrize("cfg", [ml_cfg(), sl_cfg()], ids=["ml", "sl"])
 @pytest.mark.parametrize("arg", ["flow_init", "hidden_init", "return_state"])
 def test_ladder_arguments_refuse_by_name(cfg, arg):
-    model = tmodels.load(cfg).model
-    img = torch.zeros((1, 64, 64, 3))
-    value = True if arg == "return_state" else torch.zeros(1)
-    with pytest.raises(NotImplementedError, match=f"'{arg}'.*slice 7 item 1"):
-        model.apply(img, img, **{arg: value})
+    """The ladder carry, which these models refused before the ladder was
+    ported, round-trips: a zero ``flow_init`` is the plain start,
+    ``hidden_init`` with the carried flow continues the recurrence bit for
+    bit, and ``return_state`` gives the final flow with the coarse carry.
+    (The chains against JAX are in ``test_torch_port_ladder.py``.)"""
+    spec = tmodels.load(cfg)
+    spec.model.init(torch.Generator().manual_seed(0), device="cpu")
+    img1, img2 = (torch.from_numpy(x)
+                  for x in _batch(64, 64, seed=2, n=1)[:2])
+
+    def run(**args):
+        with _one_thread(), torch.no_grad():
+            return spec.model.apply(img1, img2, **({"iterations": 2} | args))
+
+    plain = run()
+    if arg == "flow_init":
+        seeded = run(flow_init=torch.zeros(1, 8, 8, 2))
+        assert all(torch.equal(a, e) for a, e in zip(seeded, plain))
+    elif arg == "hidden_init":
+        _, state = run(iterations=1, return_state=True)
+        out, cont = run(iterations=1, flow_init=state["flow"],
+                        hidden_init=state["hidden"], return_state=True)
+        full_out, full = run(return_state=True)
+        assert torch.equal(out[-1], full_out[-1])
+        assert torch.equal(cont["flow"], full["flow"])
+        assert torch.equal(cont["hidden"], full["hidden"])
+    else:
+        out, state = run(return_state=True)
+        assert len(out) == 1 and tuple(out[0].shape) == (1, 64, 64, 2)
+        np.testing.assert_allclose(out[0].numpy(), plain[-1].numpy(),
+                                   rtol=0, atol=1e-5)
+        assert tuple(state["flow"].shape) == (1, 8, 8, 2)
+        assert tuple(state["hidden"].shape) == (1, 8, 8, 16)
+        assert tuple(state["delta"].shape) == (1,)
 
 
 def _report(float64=False):

@@ -462,16 +462,46 @@ _TINY = {"corr-levels": 2, "corr-radius": 4, "corr-channels": 32,
          "context-channels": 8, "recurrent-channels": 8}
 
 
-@pytest.mark.parametrize("arg,value", [
-    ("flow_init", torch.zeros(1, 8, 12, 2)),
-    ("hidden_init", torch.zeros(1, 8, 8, 12)),
-    ("return_state", True)])
-def test_raft_fs_refuses_unported_arguments(arg, value):
-    spec = tmodels.load(_cfg(params=_TINY, iterations=1))
-    spec.model.init(device="cpu")
-    img = torch.zeros(1, 64, 96, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 7"):
-        spec.model(img, img, **{arg: value})
+@pytest.mark.parametrize("arg", ["flow_init", "hidden_init",
+                                 "return_state"])
+def test_raft_fs_refuses_unported_arguments(arg, monkeypatch):
+    """The ladder carry, refused before the ladder was ported (hence the
+    name), round-trips at every level windowed: a zero ``flow_init`` is
+    the plain start, ``hidden_init`` with the carried flow continues the
+    recurrence bit for bit, and ``return_state`` gives the final flow
+    with the coarse carry. (The chains against JAX are in
+    ``test_torch_port_ladder.py``.)"""
+    monkeypatch.setenv("RMD_FS_VOLUME_GIB", "0")
+    spec = tmodels.load(_cfg(params=_TINY, iterations=2))
+    spec.model.init(torch.Generator().manual_seed(0), device="cpu")
+    rs = np.random.RandomState(2)
+    img1, img2 = (torch.from_numpy(rs.uniform(-1, 1, (1, 64, 96, 3))
+                                   .astype(np.float32)) for _ in range(2))
+
+    def run(**args):
+        with _one_thread(), torch.no_grad():
+            return spec.model.apply(img1, img2, **args)
+
+    plain = run()
+    if arg == "flow_init":
+        seeded = run(flow_init=torch.zeros(1, 8, 12, 2))
+        assert all(torch.equal(a, e) for a, e in zip(seeded, plain))
+    elif arg == "hidden_init":
+        _, state = run(iterations=1, return_state=True)
+        out, cont = run(iterations=1, flow_init=state["flow"],
+                        hidden_init=state["hidden"], return_state=True)
+        full_out, full = run(return_state=True)
+        assert torch.equal(out[-1], full_out[-1])
+        assert torch.equal(cont["flow"], full["flow"])
+        assert torch.equal(cont["hidden"], full["hidden"])
+    else:
+        out, state = run(return_state=True)
+        assert len(out) == 1 and tuple(out[0].shape) == (1, 64, 96, 2)
+        np.testing.assert_allclose(out[0].numpy(), plain[-1].numpy(),
+                                   rtol=0, atol=1e-5)
+        assert tuple(state["flow"].shape) == (1, 8, 12, 2)
+        assert tuple(state["hidden"].shape) == (1, 8, 12, 8)
+        assert tuple(state["delta"].shape) == (1,)
 
 
 def _tiny_model_file(path):

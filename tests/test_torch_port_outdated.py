@@ -408,15 +408,18 @@ def test_shipped_wip_stages_pass_their_loss_an_argument_it_refuses(name):
 
 
 def test_refusals():
-    """raft/cl's ladder argument, a non-square wip/warp/2 window and the
-    activation hooks of the three models refuse by name."""
+    """raft/cl's ladder arguments (it takes ``flow_init``, as in JAX, but
+    neither ``hidden_init`` nor ``return_state``), a non-square
+    wip/warp/2 window and the activation hooks of the three models
+    refuse."""
     for cfg in (CL, WARP1, WARP2):
         with pytest.raises(NotImplementedError, match="slice 2 item 7"):
             convert.activation_points(tmodels.load(cfg).model.module)
     model = tmodels.load(CL).model
     img = torch.zeros((1, SIDE, SIDE, 3))
-    with pytest.raises(NotImplementedError, match="'flow_init'.*slice 7"):
-        model.apply(img, img, flow_init=torch.zeros(1))
+    for arg in ("hidden_init", "return_state"):
+        with pytest.raises(TypeError, match=f"unexpected keyword.*'{arg}'"):
+            model.apply(img, img, **{arg: True})
     bad = {**WARP2["model"]["parameters"], "disp-range": [[1, 2]] * 5}
     with pytest.raises(ValueError, match="square"):
         tmodels.load({**WARP2, "model": {**WARP2["model"],

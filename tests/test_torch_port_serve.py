@@ -102,8 +102,8 @@ def test_dispatch_failure_completes_tickets_with_a_typed_cause():
 
 
 def test_session_rejects_unported_options():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.ServeSession(_spec(), "64x96", ladder="4,8", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP slice 7 item 2"):
+        serve.ServeSession(_spec(), "64x96", video=True, device="cpu")
 
 
 def test_session_on_cuda_without_cuda_raises():
