@@ -54,10 +54,12 @@ the card and fails (non-zero exit, no result line) on any fault:
    level 3; raft+dicl/ml's levels 1 and 3 and raft+dicl/sl's grid at b10
    496x368; raft/cl's levels 1-3 at b10 512x384, its level 0 being ctf's
    level-3 case; two ragged tiny cases with far out-of-bounds centres, whose
-   windows must be exact zeros), each timed beside the plain version, its
-   bound and ``F.grid_sample`` (in float32 checked against the plain
-   version first; in bf16 timed if it takes bf16, its refusal printed if
-   not);
+   windows must be exact zeros; the centres scattered per position, and
+   smooth as a model's for ctf's level 3 in both dtypes and ml's level 1),
+   the backward launched twice and equal by ``torch.equal``, each timed
+   beside the plain version, its bound (and the share of it) and
+   ``F.grid_sample`` (in float32 checked against the plain version first;
+   in bf16 timed if it takes bf16, its refusal printed if not);
 10. ctf model: ``raft+dicl/ctf-l3`` in float32, full width, iterations
    (4, 3, 3), at 1x384x512, card vs CPU from one seeded init, TF32 off;
    the sampler launches exactly 10 times per forward, the combine once;
@@ -315,7 +317,14 @@ the card and fails (non-zero exit, no result line) on any fault:
    tier's 4-iteration rung) within phase 20's u8 bound on the final flow
    (2.5e-3 of its largest |value|) of the in-process quantized 4-iteration
    rung of its host-decoded images, and that rung's distance to the
-   plain one printed.
+   plain one printed;
+29. deterministic training: ``main train -e cfg/env/deterministic.yaml``
+   of the shipped s0-chairs stage of ``raft+dicl/sl`` and of
+   ``raft+dicl/ctf-l3`` (batch 10, 3 steps), twice each side by side in
+   processes of their own: the losses and the parameters the runs end
+   with equal bit for bit, the sampler's backward launched; or both runs
+   stopped by the same op with no deterministic CUDA form, printed, which
+   must not be the sampler.
 
 Each phase prints one JSON line (and a ``timing`` line); every phase runs
 even after another failed, and a failure ends the run with exit code 1
@@ -327,6 +336,7 @@ the card's ``nvidia-smi`` name/power-limit line, and last
 """
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -461,8 +471,11 @@ CTF_TRAIN_STEPS = 8
 # sampler cases (b, h2, w2, c, h, w): the ctf paths' levels, f2 and the
 # centres on one grid. The training levels 3-5 at b10 384x512 (level 3 also
 # in bf16, as under the mixed-precision policy), the 448x1024 serve
-# bucket's level 3 at batch 4, and two ragged tiny cases (C = 5, and C = 40:
-# one full and one masked 32-channel chunk)
+# bucket's level 3 at batch 4, two ragged tiny cases (C = 5, and C = 40:
+# one full and one masked 32-channel chunk), three cases past the
+# backward's single passes and one sparse case. Centres scatter (the grid plus
+# 4 px of noise drawn per position) unless a case says "smooth" (the grid
+# plus a flow drawn at 1/8 of the grid and upsampled: a model's centres)
 SW_CASES = (
     {"name": "train level 3", "dtype": "float32",
      "shape": (10, 48, 64, 32, 48, 64)},
@@ -493,6 +506,26 @@ SW_CASES = (
      "shape": (10, 6, 8, 32, 48, 64)},
     {"name": "ragged", "dtype": "float32", "shape": (2, 13, 17, 5, 6, 7)},
     {"name": "ragged", "dtype": "bfloat16", "shape": (2, 13, 17, 40, 6, 7)},
+    {"name": "train level 3", "dtype": "float32", "centres": "smooth",
+     "shape": (10, 48, 64, 32, 48, 64)},
+    {"name": "train level 3", "dtype": "bfloat16", "centres": "smooth",
+     "shape": (10, 48, 64, 32, 48, 64)},
+    {"name": "ml train level 1", "dtype": "float32", "centres": "smooth",
+     "shape": (10, 23, 31, 32, 46, 62)},
+    # the backward's paths for large inputs: a cell range split into
+    # scan steps (a level of 800x960 at 1/8: 14,300 cells), more cells
+    # than one bucketing pass counts (ctf-l3's level 3 of a 1072x2560 HD1K
+    # frame: 47,520 cells), more channels than one pass of a warp (160)
+    {"name": "wide f2", "dtype": "float32",
+     "shape": (2, 100, 120, 32, 100, 120)},
+    {"name": "hd1k level 3", "dtype": "float32",
+     "shape": (2, 134, 320, 32, 134, 320)},
+    {"name": "wide channels", "dtype": "float32",
+     "shape": (2, 13, 17, 160, 6, 7)},
+    # few centres over a large f2 (20x24 over 100x120): most tiles of f2
+    # get no window
+    {"name": "sparse f2", "dtype": "float32",
+     "shape": (2, 100, 120, 32, 20, 24)},
 )
 SW_MAIN_CASE = 0      # the kernels line quotes the level-3 training case
 # far out-of-bounds centres (b, y, x, cx, cy): their windows are exact zeros
@@ -506,9 +539,9 @@ SW_BWD_OPS_PER_VALUE = SW_OPS_PER_VALUE + (SW_K + 1) ** 2 / (SW_K * SW_K)
 # backward tolerance, relative to S, the sum of the magnitudes of the terms
 # each df2 element adds (the plain backward of |dout|: the lerp weights are
 # >= 0). Two orders of summing n float32 terms differ by at most
-# 2 (n - 1) 2^-24 S; atomics add in any order. 2^-13 covers n <= 1,024
-# terms per element; these inputs give about 400 (some 100 windows cover
-# each tap, each through up to 4 lerp weights)
+# 2 (n - 1) 2^-24 S; the kernel's fixed order is not the plain scatter's.
+# 2^-13 covers n <= 1,024 terms per element; these inputs give about 400
+# (some 100 windows cover each tap, each through up to 4 lerp weights)
 SW_BWD_ORDER_REL = 2.0 ** -13
 
 # -- raft/fs: the shipped config (bf16 policy, 4 levels, radius 4, 256
@@ -1387,18 +1420,47 @@ def phase_train(card):
 
 
 def _sw_inputs(case, gen):
-    """f2 and centres for one sampler case: the level's grid plus a smooth
-    random flow of a few px and a few far out-of-bounds centres."""
+    """f2 and centres for one sampler case: the level's grid plus 4 px of
+    normal noise drawn independently per position (scattered centres), or
+    for a "smooth" case plus a flow of up to 4 px drawn at 1/8 of the grid
+    and upsampled bilinearly (as a model's centres); and a few far
+    out-of-bounds centres."""
+    import torch.nn.functional as F
+
     b, h2, w2, c, h, w = case["shape"]
     dtype = getattr(torch, case["dtype"])
     f2 = torch.randn(b, h2, w2, c, device="cuda", generator=gen).to(dtype)
     ys, xs = torch.meshgrid(torch.arange(h, device="cuda"),
                             torch.arange(w, device="cuda"), indexing="ij")
     grid = torch.stack((xs * (w2 / w), ys * (h2 / h)), dim=-1).float()
-    coords = grid + 4 * torch.randn(b, h, w, 2, device="cuda", generator=gen)
+    if case.get("centres") == "smooth":
+        coarse = 8 * torch.rand(b, 2, -(-h // 8), -(-w // 8), device="cuda",
+                                generator=gen) - 4
+        flow = F.interpolate(coarse, size=(h, w), mode="bilinear",
+                             align_corners=True).permute(0, 2, 3, 1)
+        coords = grid + flow
+    else:
+        coords = grid + 4 * torch.randn(b, h, w, 2, device="cuda",
+                                        generator=gen)
     for bi, y, x, cx, cy in SW_FAR:
         coords[bi, y, x] = torch.tensor([cx, cy])
     return f2, coords.contiguous()
+
+
+def _sw_needed_vectors(coords, h2, w2, radius):
+    """The (position, du, dv) vectors of dout that add to df2: those with at
+    least one of their four taps, columns x0 + du and x0 + du + 1 and rows
+    y0 + dv and y0 + dv + 1, inside the h2 x w2 f2 (x0, y0 the window's
+    corner from the centre clamped as the kernels clamp it)."""
+    k = 2 * radius + 1
+    cx = coords[..., 0].clamp(-(radius + 1.0), w2 + radius)
+    cy = coords[..., 1].clamp(-(radius + 1.0), h2 + radius)
+    d = torch.arange(k, device=coords.device)
+    x = torch.floor(cx)[..., None] - radius + d
+    y = torch.floor(cy)[..., None] - radius + d
+    nx = ((x + 1 >= 0) & (x <= w2 - 1)).sum(-1)
+    ny = ((y + 1 >= 0) & (y <= h2 - 1)).sum(-1)
+    return int((nx * ny).sum().item())
 
 
 def _sw_bound(out, ref, dtype, scale=0.0):
@@ -1454,6 +1516,7 @@ def phase_sw_kernels(card):
     cases = []
     for case in SW_CASES:
         dtype = getattr(torch, case["dtype"])
+        b, h2, w2, c, h, w = case["shape"]
         f2, coords = _sw_inputs(case, gen)
         before = sample.launches
         out = sample.sample_window_fused(f2, coords, r)
@@ -1471,18 +1534,25 @@ def phase_sw_kernels(card):
 
         dout = torch.randn(out.shape, device="cuda", generator=gen).to(dtype)
         before = sample.bwd_launches
-        df2 = sample._launch_bwd(dout, coords, tuple(f2.shape), r).to(dtype)
+        df2_f32 = sample._launch_bwd(dout, coords, tuple(f2.shape), r)
         torch.cuda.synchronize()
         if sample.bwd_launches != before + 1:
             raise AssertionError("sample_window backward did not launch")
+        # the same inputs again give the same bits (no float atomics)
+        if not torch.equal(df2_f32, sample._launch_bwd(
+                dout, coords, tuple(f2.shape), r)):
+            raise AssertionError(f"sample_window backward {case}: two "
+                                 "launches differ")
+        df2 = df2_f32.to(dtype)
+        del df2_f32
         f2r = f2.detach().requires_grad_(True)
         ref_out = sample.sample_window(f2r, coords, r)
         (ref_df2,) = torch.autograd.grad(ref_out, f2r, dout,
                                          retain_graph=True)
-        # rule: |diff| <= 1e-5 + SW_BWD_ORDER_REL * S (the kernel's atomics
-        # and the plain scatter add the same float32 terms in other
-        # orders), plus one bf16 ulp for a bf16 df2 (each side rounds its
-        # float32 sum once)
+        # rule: |diff| <= 1e-5 + SW_BWD_ORDER_REL * S (the kernel and the
+        # plain scatter add the same float32 terms in other orders), plus
+        # one bf16 ulp for a bf16 df2 (each side rounds its float32 sum
+        # once)
         f2f = f2.detach().float().requires_grad_(True)
         (s,) = torch.autograd.grad(sample.sample_window(f2f, coords, r), f2f,
                                    dout.abs().float())
@@ -1506,10 +1576,11 @@ def phase_sw_kernels(card):
         lib = {}
         if dtype == torch.float32:
             # the library call computes the same window (coordinates go
-            # through [-1, 1] and back, so it is checked at 1e-4)
+            # through [-1, 1] and back, whose rounding grows with the side:
+            # checked at 1e-4 per 128 px of f2's longer side, at least 1e-4)
             call, as_window = _grid_sample_window(f2, coords, r)
             lib_err = (as_window(call()) - ref).abs().max().item()
-            if not lib_err <= 1e-4:
+            if not lib_err <= 1e-4 * max(1.0, max(h2, w2) / 128):
                 raise AssertionError(f"grid_sample window differs by {lib_err}")
             f2n = f2.permute(0, 3, 1, 2).detach().requires_grad_(True)
             lib_out = call(f2n)
@@ -1537,26 +1608,37 @@ def phase_sw_kernels(card):
             except RuntimeError as e:
                 lib = dict(library_refused=str(e).splitlines()[0])
 
-        b, h2, w2, c, h, w = case["shape"]
         positions = b * h * w
         out_bytes = out.numel() * out.element_size()
         in_bytes = f2.numel() * f2.element_size() + coords.numel() * 4
         fwd_ms_b = 1e3 * (in_bytes + out_bytes) / PEAK_BYTES_S
         fwd_ms_o = 1e3 * out.numel() * SW_OPS_PER_VALUE / PEAK_F32_OPS_S
-        bwd_ms_b = 1e3 * (out_bytes + coords.numel() * 4
-                          + f2.numel() * f2.element_size()) / PEAK_BYTES_S
+        # the backward's bytes: the dout vectors these centres need (at
+        # least one of their four taps inside f2), the coords and df2; and
+        # the same with all of dout read
+        f2_bytes = f2.numel() * f2.element_size()
+        need_bytes = (_sw_needed_vectors(coords, h2, w2, r) * c
+                      * dout.element_size() + coords.numel() * 4 + f2_bytes)
+        all_bytes = out_bytes + coords.numel() * 4 + f2_bytes
+        bwd_ms_b = 1e3 * need_bytes / PEAK_BYTES_S
         bwd_ms_o = 1e3 * out.numel() * SW_BWD_OPS_PER_VALUE / PEAK_F32_OPS_S
+        bwd_bound = max(bwd_ms_b, bwd_ms_o)
+        bwd_all_bound = max(1e3 * all_bytes / PEAK_BYTES_S, bwd_ms_o)
         record = dict(
-            case=case["name"], dtype=case["dtype"], f2=[b, h2, w2, c],
+            case=case["name"], dtype=case["dtype"],
+            centres=case.get("centres", "scattered"), f2=[b, h2, w2, c],
             coords=[b, h, w, 2], radius=r, positions=positions,
             max_abs_err=err, err_over_bound=share, ms=ms, plain_ms=plain_ms,
             bound_ms=max(fwd_ms_b, fwd_ms_o),
             bound_by="bytes" if fwd_ms_b >= fwd_ms_o else "operations",
             bytes=in_bytes + out_bytes, bwd_max_abs_err=bwd_err,
             bwd_err_over_bound=bwd_share, bwd_err_over_s=bwd_err_over_s,
-            bwd_ms=bwd_ms,
-            plain_bwd_ms=plain_bwd_ms, bwd_bound_ms=max(bwd_ms_b, bwd_ms_o),
+            bwd_ms=bwd_ms, bwd_repeat_equal=True,
+            plain_bwd_ms=plain_bwd_ms, bwd_bound_ms=bwd_bound,
             bwd_bound_by="bytes" if bwd_ms_b >= bwd_ms_o else "operations",
+            bwd_share_of_bound=bwd_bound / bwd_ms, bwd_bytes=need_bytes,
+            bwd_all_dout_bound_ms=bwd_all_bound,
+            bwd_share_of_all_dout_bound=bwd_all_bound / bwd_ms,
             **lib)
         cases.append(record)
         emit(phase="kernel-check", kernel="sample_window", tf32=False,
@@ -1923,12 +2005,12 @@ def _write_chairs_tree(root, pairs):
     (root / "train_val.txt").write_text("1\n" * pairs)
 
 
-def _full_train(path, steps, tmp, drop_loss_args=()):
-    """``main train`` of stage 0 of the shipped full config ``path`` (its
-    model, augmentations, batch, optimizer, schedule and clip as they
-    ship, less the stage's loss arguments ``drop_loss_args``) over a
-    FlyingChairs-shaped tree, without validation, for ``steps`` steps;
-    returns the readings and the problems."""
+def _full_stage(path, steps, tmp, drop_loss_args=()):
+    """Stage 0 of the shipped full config ``path`` (its model,
+    augmentations, batch, optimizer, schedule and clip as they ship, less
+    the stage's loss arguments ``drop_loss_args``) over a FlyingChairs-shaped
+    tree of ``steps`` batches and a pair, without validation: returns the
+    strategy and model files ``main train`` takes, and the stage."""
     config = json.loads(path.read_text())
     stage = json.loads(json.dumps(config["strategy"]["stages"][0]))
     for key in drop_loss_args:
@@ -1947,6 +2029,15 @@ def _full_train(path, steps, tmp, drop_loss_args=()):
     strategy.write_text(json.dumps({"mode": "continuous", "stages": [stage]}))
     model = tmp / f"{name}-model.json"
     model.write_text(json.dumps(config["model"]))
+    return strategy, model, stage
+
+
+def _full_train(path, steps, tmp, drop_loss_args=()):
+    """``main train`` of ``_full_stage``'s stage 0 of the shipped full config
+    ``path`` for ``steps`` steps; returns the readings and the problems."""
+    strategy, model, stage = _full_stage(path, steps, tmp, drop_loss_args)
+    batch = stage["data"]["batch-size"]
+    name = path.name.split(".")[0]
 
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5381,6 +5472,122 @@ def phase_ladder(card):
 
 
 
+# -- deterministic training (cfg/env/deterministic.yaml) ---------------------
+
+# main train of the shipped s0-chairs stage of models whose step launches the
+# sampler backward, twice side by side under -e cfg/env/deterministic.yaml
+DET_TRAIN = {
+    "sl": DICL_FULL["sl"],
+    "ctf-l3": ROOT / "cfg" / "full" / "baseline"
+    / "raft+dicl-ctf3l.s0-chairs.json",
+}
+DET_TRAIN_STEPS = 3
+
+# one run in a process of its own (the deterministic switches are
+# process-wide): its last line is the losses, a digest of the parameters it
+# ends with and the sampler's launches, or the error that stopped it
+_DET_RUN = (
+    "import hashlib, json, sys\n"
+    "import torch\n"
+    "from raft_meets_dicl_tpu_torch import main\n"
+    "from raft_meets_dicl_tpu_torch.ops import sample\n"
+    "try:\n"
+    "    tctx = main.main(sys.argv[1:])\n"
+    "except Exception as e:\n"
+    "    print(json.dumps({'error': f'{type(e).__name__}: '\n"
+    "                      + (str(e).splitlines() or [''])[0]}))\n"
+    "    sys.exit(0)\n"
+    "digest = hashlib.sha256()\n"
+    "for key, value in sorted(tctx.model.module.state_dict().items()):\n"
+    "    digest.update(key.encode())\n"
+    "    digest.update(value.detach().cpu().contiguous().reshape(-1)\n"
+    "                  .view(torch.uint8).numpy().tobytes())\n"
+    "print(json.dumps({'losses': [h['loss'] for h in tctx.history],\n"
+    "                  'params': digest.hexdigest(),\n"
+    "                  'launches': [sample.launches, sample.bwd_launches]}))\n")
+
+
+def _det_pair(name, path, tmp):
+    """Two ``main train`` runs of ``name``'s stage, side by side, each in a
+    process of its own; returns their readings and the problems."""
+    strategy, model, _ = _full_stage(path, DET_TRAIN_STEPS, tmp)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _DET_RUN, "train", "-d", str(strategy), "-m",
+         str(model), "-e", str(ENV_DIR / "deterministic.yaml"), "-s",
+         str(SEEDS), "-o", str(tmp / f"det-{name}-{k}"), "--limit-steps",
+         str(DET_TRAIN_STEPS)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for k in (0, 1)]
+    outs = [p.communicate(timeout=600) for p in procs]
+    problems, runs = [], []
+    for p, (out, err) in zip(procs, outs):
+        if p.returncode != 0:
+            problems.append(f"{name}: a run exited {p.returncode}: "
+                            f"{err[-2000:]}")
+            continue
+        if "deterministic algorithms: on" not in err:
+            problems.append(f"{name}: a run did not turn deterministic "
+                            "algorithms on")
+        runs.append(json.loads(out.strip().splitlines()[-1]))
+    if problems:
+        return dict(runs=runs), problems
+    errors = [r.get("error") for r in runs]
+    if any(errors):
+        # an op with no deterministic CUDA form may stop both runs alike;
+        # it must not be the sampler's backward, and nothing else may
+        if errors[0] != errors[1] or "deterministic" not in errors[0]:
+            problems.append(f"{name}: the runs failed: {errors}")
+        elif "sample_window" in errors[0]:
+            problems.append(f"{name}: the sampler refused: {errors[0]}")
+        return dict(refused_by=errors[0]), problems
+    losses = [r["losses"] for r in runs]
+    readings = dict(losses=losses[0], params_sha256=runs[0]["params"],
+                    launches=runs[0]["launches"],
+                    bit_for_bit=losses[0] == losses[1]
+                    and runs[0]["params"] == runs[1]["params"])
+    if len(losses[0]) != DET_TRAIN_STEPS:
+        problems.append(f"{name}: {len(losses[0])} steps, expected "
+                        f"{DET_TRAIN_STEPS}")
+    if not readings["bit_for_bit"]:
+        problems.append(f"{name}: the runs differ: losses {losses}, "
+                        f"parameters {[r['params'] for r in runs]}")
+    if not runs[0]["launches"][1]:
+        problems.append(f"{name}: no sampler backward was launched")
+    return readings, problems
+
+
+def phase_deterministic_train(card):
+    """``main train -e cfg/env/deterministic.yaml`` for DET_TRAIN_STEPS
+    steps of the shipped s0-chairs stage of raft+dicl/sl and of
+    raft+dicl/ctf-l3, twice each side by side: the two runs' losses and
+    final parameters equal bit for bit, or both stopped by the same op
+    with no deterministic CUDA form, which is not the sampler."""
+    # the runs need the card's memory, which this process's allocator
+    # still holds from the earlier phases
+    gc.collect()
+    torch.cuda.empty_cache()
+    problems, readings, paths = [], {}, {}
+    readings["free_gib_before"] = round(torch.cuda.mem_get_info()[0] / 2**30,
+                                        3)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, path in DET_TRAIN.items():
+            t0 = time.perf_counter()
+            r, p = _det_pair(name, path, Path(tmp))
+            readings[name] = r | {"wall_s": round(time.perf_counter() - t0,
+                                                  3)}
+            problems += p
+            if "launches" in r:
+                paths[f"deterministic_{name}"] = {
+                    "sample_window": r["launches"][0],
+                    "sample_window_bwd": r["launches"][1]}
+    emit(phase="deterministic-train", card=card, steps=DET_TRAIN_STEPS,
+         env=str((ENV_DIR / "deterministic.yaml").relative_to(ROOT)),
+         **readings)
+    if problems:
+        raise AssertionError(f"deterministic training: {problems}")
+    return paths
+
+
 def kernels_line(results):
     """The nine kernels with their checks, times and launches.
     ``launches`` is the count of the main path of the slice that ported
@@ -5418,6 +5625,7 @@ def kernels_line(results):
         **results["phase_dicl"],
         **results["phase_zoo"],
         **results["phase_ladder"],
+        **results["phase_deterministic_train"],
     }
 
     def launches(name):
@@ -5672,7 +5880,7 @@ def main():
               phase_fs_train_all_levels, phase_lookup_kernels, phase_quant,
               phase_lifecycle, phase_augmented_train, phase_evaluate,
               phase_wire_env, phase_recovery, phase_dicl, phase_zoo,
-              phase_ladder)
+              phase_ladder, phase_deterministic_train)
     for phase in phases:
         run(phase)
     if failed:

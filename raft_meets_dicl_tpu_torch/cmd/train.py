@@ -143,10 +143,10 @@ class Environment:
         """``debug-nans``: ``torch.autograd.set_detect_anomaly(True)``
         (process-wide; ``train`` restores it when the run ends).
         ``deterministic``: torch's deterministic algorithms on (an op
-        with no deterministic form raises, and so do the port's two
-        kernels that add with atomics), cuDNN deterministic and not
-        benchmarking, and ``CUBLAS_WORKSPACE_CONFIG`` set for cuBLAS; run
-        before the first cuBLAS call."""
+        with no deterministic form raises, and so does the port's kernel
+        that adds with atomics, the windowed correlation's df2), cuDNN
+        deterministic and not benchmarking, and ``CUBLAS_WORKSPACE_CONFIG``
+        set for cuBLAS; run before the first cuBLAS call."""
         if self.debug_nans:
             torch.autograd.set_detect_anomaly(True)
         if not self.deterministic:

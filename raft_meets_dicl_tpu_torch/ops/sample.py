@@ -17,12 +17,16 @@ a channels_last NCHW tensor the matching net convolves without a copy.
 The window has f2's dtype and is computed in float32 (one rounding).
 
 On a CUDA tensor ``sample_window_fused`` launches the forward kernel or
-raises, and the gradient launches the backward kernel (``_SampleWindow``
+raises, and the gradient launches the backward kernels (``_SampleWindow``
 saves the coords and f2's shape; coords get no gradient, as every caller
-detaches the lookup centres). On a CPU tensor it computes the plain
-version, ``sample_window``, whose autograd is the backward there.
-``launches`` and ``bwd_launches`` count kernel launches (CPU calls do not
-count), so a run can show that its path went through the kernels.
+detaches the lookup centres). The backward sums each df2 element in an
+order fixed by the inputs, without float atomics: two runs give the same
+bits, so it runs under deterministic algorithms too. On a CPU tensor it
+computes the plain version, ``sample_window``, whose autograd is the
+backward there. ``launches`` and ``bwd_launches`` count forward and
+backward calls that launched (CPU calls do not count; a backward's
+kernels count once), so a run can show that its path went through the
+kernels.
 
 ``sample_bilinear`` (JAX ``ops/sample.py::sample_bilinear``) is plain
 PyTorch: the windowed correlation's plain version samples with it.
@@ -119,11 +123,17 @@ def sample_window(f2, coords, radius):
 def _library():
     lib = cuda_build.load("sample_window")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.sample_window_fwd_f32, lib.sample_window_fwd_bf16,
-               lib.sample_window_bwd_f32, lib.sample_window_bwd_bf16):
-        # (input, coords, output, b, h2, w2, c, h, w, radius, stream)
+    for fn in (lib.sample_window_fwd_f32, lib.sample_window_fwd_bf16):
+        # (f2, coords, window, b, h2, w2, c, h, w, radius, stream)
         fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr]
         fn.restype = ctypes.c_int
+    for fn in (lib.sample_window_bwd_f32, lib.sample_window_bwd_bf16):
+        # (dout, coords, df2, workspace, b, h2, w2, c, h, w, radius, stream)
+        fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
+                       ptr]
+        fn.restype = ctypes.c_int
+    lib.sample_window_bwd_workspace.argtypes = [i32] * 7
+    lib.sample_window_bwd_workspace.restype = ctypes.c_longlong
     return lib
 
 
@@ -159,6 +169,9 @@ def _check_inputs(x, f2_shape, coords, radius):
     if max(h2 * w2 * c, h * w * c * (2 * radius + 1) ** 2) >= 2**31:
         raise ValueError("sample_window: one image's window exceeds 2^31 "
                          "elements")
+    # the backward packs a window's corner into two 16-bit halves
+    if max(h2, w2) >= 2**15:
+        raise ValueError(f"sample_window: f2 sides {h2}x{w2} exceed 32767")
 
 
 def _run(fn, device, *args):
@@ -192,14 +205,12 @@ def _launch(f2, coords, radius):
 
 
 def _launch_bwd(dout, coords, f2_shape, radius):
-    """Run the backward kernel: the window's gradient ``dout`` (B, K, K, H,
-    W, C) in f2's dtype and the saved coords -> ``df2`` (B, H2, W2, C)
-    float32, every tap's share added with one atomic per position and
-    channel. The caller casts it to f2's dtype."""
+    """Run the backward kernels: the window's gradient ``dout`` (B, K, K,
+    H, W, C) in f2's dtype and the saved coords -> ``df2`` (B, H2, W2, C)
+    float32, each element summed in an order fixed by the inputs (the same
+    bits on every run). The caller casts it to f2's dtype."""
     global bwd_launches
 
-    cuda_build.refuse_if_deterministic(
-        "the sample_window backward kernel (csrc/sample_window.cu)")
     _check_inputs(dout, f2_shape, coords, radius)
     b, h2, w2, c = f2_shape
     k = 2 * radius + 1
@@ -211,16 +222,24 @@ def _launch_bwd(dout, coords, f2_shape, radius):
     lib = _library()
     fn = (lib.sample_window_bwd_bf16 if dout.dtype == torch.bfloat16
           else lib.sample_window_bwd_f32)
-    df2 = torch.zeros((b, h2, w2, c), dtype=torch.float32,
-                      device=dout.device)
+    nbytes = lib.sample_window_bwd_workspace(b, h2, w2, c, h, w, radius)
+    if nbytes < 0:
+        raise ValueError(f"sample_window backward: f2 {tuple(f2_shape)} and "
+                         f"coords {tuple(coords.shape)} exceed the kernels' "
+                         "work lists")
+    # the kernels write every element of df2; with no positions nothing
+    # is launched and df2 stays zero
+    new = torch.zeros if h * w == 0 else torch.empty
+    df2 = new((b, h2, w2, c), dtype=torch.float32, device=dout.device)
+    workspace = torch.empty(nbytes, dtype=torch.uint8, device=dout.device)
     _run(fn, dout.device, dout.data_ptr(), coords.data_ptr(), df2.data_ptr(),
-         b, h2, w2, c, h, w, radius)
+         workspace.data_ptr(), b, h2, w2, c, h, w, radius)
     bwd_launches += 1
     return df2
 
 
 class _SampleWindow(torch.autograd.Function):
-    """The CUDA pair: forward kernel, backward kernel. Saves the coords
+    """The CUDA pair: forward kernel, backward kernels. Saves the coords
     (the JAX residuals are ``(f2, coords)``; the backward needs only f2's
     shape and dtype)."""
 
@@ -235,7 +254,7 @@ class _SampleWindow(torch.autograd.Function):
     def backward(ctx, dout):
         (coords,) = ctx.saved_tensors
         shape, dtype = ctx.f2_meta
-        df2 = _launch_bwd(dout.to(dtype).contiguous(), coords, shape,
+        df2 = _launch_bwd(cuda_build.aligned(dout.to(dtype)), coords, shape,
                           ctx.radius)
         return df2.to(dtype), None, None
 

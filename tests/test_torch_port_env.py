@@ -14,8 +14,9 @@ held against the JAX package on the CPU.
   losses bit for bit, its ``config.json`` carries the environment, and
   the wire format takes the flag, then ``RMD_WIRE_FORMAT``, then the
   environment's section;
-- the deterministic switches, and the two kernels that add with atomics
-  refusing under them.
+- the deterministic switches: the windowed df2 kernel, which adds with
+  atomics, refuses under them; the sampler's backward, which sums in a
+  fixed order, does not.
 """
 
 import importlib
@@ -268,9 +269,13 @@ def test_deterministic_switches_and_atomic_kernels(deterministic):
     assert torch.backends.cudnn.deterministic
     assert not torch.backends.cudnn.benchmark
     assert os.environ["CUBLAS_WORKSPACE_CONFIG"] == ":4096:8"
-    # the two backward kernels that add with atomics refuse, by name,
-    # before they look at their arguments
-    with pytest.raises(RuntimeError, match="sample_window backward"):
-        sample._launch_bwd(None, None, None, 4)
+    # the sampler's backward sums in a fixed order: it gets past the
+    # switches to its argument checks (CUDA tensors only); the windowed
+    # df2 kernel adds with atomics and refuses, by name, before it looks
+    # at its arguments
+    dout = torch.zeros((1, 9, 9, 2, 3, 4))
+    coords = torch.zeros((1, 2, 3, 2))
+    with pytest.raises(ValueError, match="take CUDA tensors"):
+        sample._launch_bwd(dout, coords, (1, 5, 6, 4), 4)
     with pytest.raises(RuntimeError, match="df2 kernel"):
         windowed._launch_df2(None, None, None, None, 0, 1, 4)
