@@ -324,7 +324,35 @@ the card and fails (non-zero exit, no result line) on any fault:
    processes of their own: the losses and the parameters the runs end
    with equal bit for bit, the sampler's backward launched; or both runs
    stopped by the same op with no deterministic CUDA form, printed, which
-   must not be the sampler.
+   must not be the sampler;
+30. video: the streaming-video engine. The warm-start step
+   (``evaluation.make_warm_fn``, 4 iterations) on an all-zero carry equals
+   the 4-iteration base rung by ``torch.equal`` (final flow, carry flow,
+   hidden), each launching the combine once: ``raft/baseline`` f32 at
+   phase 4's 1x368x496, images and weights, TF32 off, and the same pair
+   built with ``quant="u8"``; ``raft/fs`` f32 at 1x368x496 with every
+   level windowed (4 windowed launches each). ``raft+dicl/ctf-l3`` takes
+   ``flow_init`` only with ``hidden_init`` in both packages, so its warm
+   step must refuse by that message. Raft's warm step on a nonzero carry
+   (the card's 12-iteration rung on the previous pair of a translated
+   texture) within phase 4's bound of the CPU's warm step on the same
+   inputs, and the TF32 run outside it. The sequence runner
+   (``video.SequenceRunner``, the configured ladder 4,8,12, threshold 0.1)
+   over 8 frames of a texture moved (3, -2) px a frame at 1x368x496, cold,
+   warm and warm with ``carry_hidden``: each frame's iterations, rungs and
+   ms, mean iterations and frames/s printed; frame 0 of each run the cold
+   run's bit for bit, the combine once a program dispatched. Then ``main
+   serve -c cfg/serve/example.yaml --video`` (u8 wire, buckets 384x1280
+   and 448x1024, batch 4, 32 requests at 50/s in 4 sticky streams): every
+   request served, no error or shed, every flow finite, ``warm + cold``
+   = 32 with ``warm`` > 0, the batches' warm members summing to the
+   report's ``warm``, the combine once a program dispatched and once a
+   warm-up record, the TF32 switches unchanged; p50/p99 and pairs/s
+   printed beside phase 24's u8 run. Then 4 ``products=True`` frames of
+   one client through a session of the same config: each reversed pass
+   (run cold) run again in-process, and the returned occlusion and
+   confidence equal by ``np.array_equal`` to ``fw_bw_products`` of the
+   returned flow and that reversed flow.
 
 Each phase prints one JSON line (and a ``timing`` line); every phase runs
 even after another failed, and a failure ends the run with exit code 1
@@ -4437,6 +4465,8 @@ def _wire_serve(card):
                         f"images (bound {WIRE_SERVE_MAX_ABS_PX} px)")
     readings["request0_max_abs_diff_px"] = diff
     readings["request0_bound_px"] = WIRE_SERVE_MAX_ABS_PX
+    SHARED["serve_example_u8"] = {k: readings["serve_u8"][k] for k in (
+        "p50_ms", "p99_ms", "pairs_per_sec")}
     return readings, problems, paths
 
 
@@ -5588,6 +5618,390 @@ def phase_deterministic_train(card):
     return paths
 
 
+# -- video (the streaming-video engine) ---------------------------------------
+
+# the sequence runs: a textured image translated by VIDEO_SHIFT px (x, y) a
+# frame, VIDEO_FRAMES frames at phase 4's shape, the configured ladder
+VIDEO_FRAMES = 8
+VIDEO_SHIFT = (3, -2)
+VIDEO_WARM_ITERATIONS = 4
+VIDEO_PRODUCTS_REQUESTS = 4
+
+
+def _video_frames(shape, n, shift, seed=11):
+    """``n`` frames of one smooth random texture (a sum of sinusoids and
+    fine noise, in [-1, 1]) moved by ``shift`` px a frame, wrapping."""
+    rng = np.random.default_rng(seed)
+    _, h, w = shape
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    base = np.zeros((h, w, 3), np.float64)
+    for c in range(3):
+        for _ in range(6):
+            fx, fy = rng.uniform(0.01, 0.12, 2)
+            phase = rng.uniform(0, 2 * np.pi)
+            base[..., c] += np.sin(fx * xx + fy * yy + phase)
+    base = base / np.abs(base).max() * 0.8 + 0.2 * rng.uniform(-1, 1,
+                                                               base.shape)
+    base = np.clip(base, -1, 1).astype(np.float32)
+    return [np.roll(base, (i * shift[1], i * shift[0]), axis=(0, 1))[None]
+            for i in range(n)]
+
+
+def _video_zero_carry(name, spec, x1, x2, quant=None, expected=None):
+    """The warm step on an all-zero carry against the base rung of the same
+    iterations, by ``torch.equal`` (final flow, carry flow, hidden), each
+    launching ``expected`` kernels; returns (readings, problems, launches)."""
+    from raft_meets_dicl_tpu_torch import evaluation
+
+    its = VIDEO_WARM_ITERATIONS
+    base = evaluation.make_rung_fn(spec.model, its, quant=quant)
+    warm = evaluation.make_warm_fn(spec.model, its, quant=quant)
+    _zero_counts()
+    flow_b, state_b = base(x1, x2)
+    torch.cuda.synchronize()
+    base_counts = _counts()
+    _zero_counts()
+    flow_w, state_w = warm(x1, x2, torch.zeros_like(state_b["flow"]))
+    torch.cuda.synchronize()
+    warm_counts = _counts()
+    problems = []
+    equal = {}
+    for key, a, b in (("final flow", flow_w, flow_b),
+                      ("carry flow", state_w["flow"], state_b["flow"]),
+                      ("hidden", state_w["hidden"], state_b["hidden"])):
+        equal[key] = torch.equal(a, b)
+        if not equal[key]:
+            problems.append(f"{name}: zero-carry warm {key} != base rung "
+                            f"(max |diff| "
+                            f"{(a.float() - b.float()).abs().max().item()})")
+    for which, counts in (("base", base_counts), ("warm", warm_counts)):
+        if counts != _expect(**expected):
+            problems.append(f"{name}: {which} launched {counts}, expected "
+                            f"{_expect(**expected)}")
+    if not bool(torch.isfinite(flow_w).all()):
+        problems.append(f"{name}: non-finite warm flow")
+    return dict(iterations=its, quant=quant, equal=equal,
+                launches={k: v for k, v in warm_counts.items() if v}), \
+        problems, {k: base_counts[k] + warm_counts[k] for k in base_counts}
+
+
+def _video_models(card):
+    """Zero carries (raft f32 and u8, raft/fs all windowed, ctf-l3's
+    refusal) and raft's nonzero carry card vs CPU; returns the readings,
+    the problems, the launches and raft's card spec."""
+    from raft_meets_dicl_tpu_torch import evaluation
+
+    readings, problems, paths = {}, [], {}
+
+    def seeded(load):
+        cpu = load()
+        cpu.model.init(torch.Generator().manual_seed(0), device="cpu")
+        gpu = load()
+        gpu.model.module.load_state_dict(cpu.model.module.state_dict())
+        gpu.model.module.to("cuda").eval()
+        return cpu, gpu
+
+    set_tf32(False)
+    # raft/baseline: phase 4's images and weights
+    rng = np.random.default_rng(0)
+    img1, img2 = (torch.from_numpy(rng.uniform(-1, 1, (*LADDER_RAFT_SHAPE, 3))
+                                   .astype(np.float32)) for _ in range(2))
+    cpu, gpu = seeded(lambda: _load_raft(False))
+    x1, x2 = img1.cuda(), img2.cuda()
+    for quant in (None, "u8"):
+        name = f"raft {quant or 'f32'}"
+        r, p, counts = _video_zero_carry(name, gpu, x1, x2, quant,
+                                         {"convex_combine_8x": 1})
+        readings[name] = r
+        problems += p
+        paths[f"video_zero_carry_{quant or 'f32'}"] = counts
+
+    # a nonzero carry: the card's 12-iteration rung on the previous pair of
+    # a translated texture, then the warm step on the next pair, card vs
+    # CPU on the same inputs
+    frames = _video_frames(LADDER_RAFT_SHAPE, 3, VIDEO_SHIFT)
+    f0, f1, f2 = (torch.from_numpy(f) for f in frames)
+    _, prev = evaluation.make_rung_fn(gpu.model, 12)(f0.cuda(), f1.cuda())
+    carry = prev["flow"]
+    warm = evaluation.make_warm_fn(gpu.model, VIDEO_WARM_ITERATIONS)
+    flow, _ = warm(f1.cuda(), f2.cuda(), carry)
+    t0 = time.perf_counter()
+    cpu_flow, _ = evaluation.make_warm_fn(cpu.model, VIDEO_WARM_ITERATIONS)(
+        f1, f2, carry.cpu())
+    cpu_s = time.perf_counter() - t0
+    set_tf32(True)
+    tf32_flow, _ = warm(f1.cuda(), f2.cuda(), carry)
+    set_tf32(False)
+    diff = (flow.cpu() - cpu_flow).abs().max().item()
+    tf32_diff = (tf32_flow.cpu() - cpu_flow).abs().max().item()
+    base_flow, _ = evaluation.make_rung_fn(gpu.model, VIDEO_WARM_ITERATIONS)(
+        f1.cuda(), f2.cuda())
+    if not diff <= MODEL_MAX_ABS_DIFF:
+        problems.append(f"raft: warm step card vs CPU {diff} px > "
+                        f"{MODEL_MAX_ABS_DIFF}")
+    if not tf32_diff > MODEL_MAX_ABS_DIFF:
+        problems.append(f"raft: the TF32 warm step stays inside the "
+                        f"card-vs-CPU bound ({tf32_diff} px)")
+    readings["raft nonzero carry"] = dict(
+        shape=list(LADDER_RAFT_SHAPE), carry_from="12-iteration rung",
+        iterations=VIDEO_WARM_ITERATIONS, max_abs_diff_px=diff,
+        bound_px=MODEL_MAX_ABS_DIFF, tf32_max_abs_diff_px=tf32_diff,
+        max_abs_flow_px=cpu_flow.abs().max().item(),
+        max_abs_carry_px=carry.abs().max().item(),
+        warm_vs_cold_px=(flow - base_flow).abs().max().item(),
+        cpu_warm_s=round(cpu_s, 3))
+
+    # ctf-l3 takes flow_init only with hidden_init, in the JAX package as
+    # here: its warm step refuses by name
+    _, ctf = seeded(_load_ctf)
+    rng = np.random.default_rng(5)
+    c1, c2 = (torch.from_numpy(rng.uniform(-1, 1, (*LADDER_CTF_SHAPE, 3))
+                               .astype(np.float32)).cuda() for _ in range(2))
+    try:
+        evaluation.make_warm_fn(ctf.model, VIDEO_WARM_ITERATIONS)(
+            c1, c2, torch.zeros(1, LADDER_CTF_SHAPE[1] // 8,
+                                LADDER_CTF_SHAPE[2] // 8, 2, device="cuda"))
+        problems.append("ctf-l3: the warm step ran; the model takes "
+                        "flow_init only with hidden_init")
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
+        if "flow_init only together with hidden_init" not in refusal:
+            problems.append(f"ctf-l3: refused with {refusal!r}")
+    readings["ctf-l3"] = dict(shape=list(LADDER_CTF_SHAPE), refused=refusal)
+    del ctf
+
+    # raft/fs, every level windowed: one windowed launch an iteration
+    rng = np.random.default_rng(6)
+    s1, s2 = (torch.from_numpy(rng.uniform(-1, 1, (1, *FS_MODEL_SHAPE, 3))
+                               .astype(np.float32)).cuda() for _ in range(2))
+    with _volume_budget("0"):
+        _, fs = seeded(_load_fs)
+        r, p, counts = _video_zero_carry(
+            "raft/fs", fs, s1, s2, None,
+            {"convex_combine_8x": 1,
+             "windowed_corr_pyramid": VIDEO_WARM_ITERATIONS})
+    readings["raft/fs"] = r | {"budget_gib": "0"}
+    problems += p
+    paths["video_zero_carry_fs"] = counts
+    del fs
+    return readings, problems, paths, gpu
+
+
+def _video_sequences(gpu):
+    """The sequence runner on raft f32 over the translated texture: cold,
+    warm and warm with ``carry_hidden``; frame 0 of each the cold run's bit
+    for bit, the combine once a program dispatched."""
+    from raft_meets_dicl_tpu_torch.serve import LadderSpec
+    from raft_meets_dicl_tpu_torch.video import SequenceRunner
+
+    frames = [torch.from_numpy(f).cuda() for f in _video_frames(
+        LADDER_RAFT_SHAPE, VIDEO_FRAMES, VIDEO_SHIFT)]
+    ladder = LadderSpec.from_config()
+    problems, readings, paths = [], {}, {}
+    first = None
+    for mode, hidden, warm in (("cold", False, False), ("warm", False, True),
+                               ("carry_hidden", True, True)):
+        runner = SequenceRunner(gpu.model, ladder=ladder, carry_hidden=hidden)
+        runner.run(frames[:2], warm=warm, keep_flows=False)  # build, warm up
+        _zero_counts()
+        res = runner.run(frames, warm=warm)
+        torch.cuda.synchronize()
+        counts = _counts()
+        programs = sum(f.rungs for f in res.frames)
+        if counts != _expect(convex_combine_8x=programs):
+            problems.append(f"{mode}: launches {counts}, expected "
+                            f"{programs} combines (programs dispatched)")
+        if first is None:
+            first = res.frames[0].flow
+        elif not np.array_equal(res.frames[0].flow, first):
+            problems.append(f"{mode}: frame 0 differs from the cold run's")
+        want_warm = [False] + [warm] * (len(res.frames) - 1)
+        if [f.warm for f in res.frames] != want_warm:
+            problems.append(f"{mode}: warm frames {[f.warm for f in res.frames]}")
+        if not all(np.isfinite(f.flow).all() for f in res.frames):
+            problems.append(f"{mode}: non-finite flow")
+        readings[mode] = dict(
+            frames=[dict(frame=f.frame, warm=f.warm, iterations=f.iterations,
+                         rungs=f.rungs, ms=round(1e3 * f.seconds, 3),
+                         max_abs_flow_px=float(np.abs(f.flow).max()))
+                    for f in res.frames],
+            mean_iterations=res.mean_iterations(),
+            frames_per_sec=res.frames_per_sec(), programs=programs,
+            launches=counts["convex_combine_8x"])
+        paths[f"video_sequence_{mode}"] = counts
+    readings["ladder"] = ladder.describe()
+    readings["shape"] = list(LADDER_RAFT_SHAPE)
+    readings["shift_px"] = list(VIDEO_SHIFT)
+    return readings, problems, paths
+
+
+def _video_serve(card):
+    """``main serve -c cfg/serve/example.yaml --video``, then products
+    requests through a session of the same config, each request's
+    products against ``fw_bw_products`` of its flow and the reversed pass
+    run again in-process."""
+    from raft_meets_dicl_tpu_torch import main as port_main
+    from raft_meets_dicl_tpu_torch import models
+    from raft_meets_dicl_tpu_torch.models.input import ShapeBuckets
+    from raft_meets_dicl_tpu_torch.models.wire import WireFormat
+    from raft_meets_dicl_tpu_torch.serve import Scheduler
+    from raft_meets_dicl_tpu_torch.serve.session import ServeSession
+    from raft_meets_dicl_tpu_torch.utils import config
+    from raft_meets_dicl_tpu_torch.video import fw_bw_products
+
+    shipped = config.load(SERVE_EXAMPLE)["serve"]
+    batch, requests = shipped["batch-size"], shipped["requests"]
+    # back to PyTorch's defaults, as a served process starts
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tf32_before = (torch.backends.cudnn.allow_tf32,
+                   torch.backends.cuda.matmul.allow_tf32)
+    original, programs = ServeSession.run_video, []
+
+    def run_video(self, img1, img2, carry=None):
+        out = original(self, img1, img2, carry)
+        programs.append(out[2]["warm"])
+        return out
+
+    ServeSession.run_video = run_video
+    try:
+        _zero_counts()
+        report = port_main.main(["serve", "-c", str(SERVE_EXAMPLE),
+                                 "--video"])
+        torch.cuda.synchronize()
+        counts = _counts()
+    finally:
+        ServeSession.run_video = original
+    tf32_after = (torch.backends.cudnn.allow_tf32,
+                  torch.backends.cuda.matmul.allow_tf32)
+
+    problems = []
+    if report["completed"] != requests or report["requests"] != requests:
+        problems.append(f"completed {report['completed']}/"
+                        f"{report['requests']}")
+    if report["errors"] or report["rejected"]:
+        problems.append(f"errors {report['errors']}, rejected "
+                        f"{report['rejected']}")
+    if report["nonfinite"]:
+        problems.append(f"{report['nonfinite']} non-finite flows")
+    split = report.get("video", {"warm": 0, "cold": report["completed"]})
+    if split["warm"] + split["cold"] != requests or not split["warm"] > 0:
+        problems.append(f"video split {split}")
+    warm_members = sum(b["warm_members"] for b in report["batch_log"])
+    if warm_members != split["warm"]:
+        problems.append(f"the batches' warm members {warm_members} != the "
+                        f"report's warm {split['warm']}")
+    expected = _expect(convex_combine_8x=len(programs)
+                       + len(report["warmup"]))
+    if counts != expected or len(programs) != report["batches"]:
+        problems.append(f"launches {counts}, expected {expected} (programs "
+                        f"{len(programs)}, batches {report['batches']}, "
+                        "+ warm-up)")
+    if tf32_after != tf32_before:
+        problems.append(f"TF32 switches {tf32_before} before the run, "
+                        f"{tf32_after} after")
+    serve_readings = dict(
+        command="main serve -c cfg/serve/example.yaml --video",
+        buckets=shipped["buckets"], batch=batch, requests=requests,
+        completed=report["completed"], video=split,
+        batches=report["batches"], warm_batches=sum(programs),
+        warm_members=warm_members, launches=counts["convex_combine_8x"],
+        warmup_records=len(report["warmup"]),
+        sessions=report["video_sessions"],
+        p50_ms=report["p50_ms"], p99_ms=report["p99_ms"],
+        pairs_per_sec=report["pairs_per_sec"], spans_ms=report["spans_ms"],
+        tf32=dict(before=tf32_before, after=tf32_after),
+        phase24_u8=SHARED.get("serve_example_u8"), card=card)
+
+    # products: VIDEO_PRODUCTS_REQUESTS sticky frames of one client through
+    # a session of the same config; each dispatched batch's reversed pass
+    # is run again in-process
+    spec = models.load(config.load(SERVE_EXAMPLE.parent / shipped["model"]))
+    wire = WireFormat.from_config(shipped["wire-format"])
+    session = ServeSession(spec, ShapeBuckets.from_config(shipped["buckets"]),
+                           wire=wire, batch_size=batch, video=True,
+                           device="cuda")
+    session.warm_pool()
+    assembled = []
+
+    def capture(img1, img2, carry=None):
+        assembled.append((np.array(img1), np.array(img2), carry is None))
+        return original(session, img1, img2, carry)
+
+    session.run_video = capture
+    scheduler = Scheduler(session, max_wait_ms=1).start()
+    h, w = ShapeBuckets.from_config(shipped["buckets"]).sizes[0]
+    # raw [0, 1] frames of the translated texture, off the bucket's shape
+    frames = [(f[0] + 1) / 2 for f in _video_frames(
+        (1, h - 8, w - 8), VIDEO_PRODUCTS_REQUESTS + 1, VIDEO_SHIFT)]
+    _zero_counts()
+    try:
+        results = []
+        for i in range(VIDEO_PRODUCTS_REQUESTS):
+            results.append(scheduler.submit(
+                frames[i], frames[i + 1], client="products", sequence=True,
+                products=True).result(timeout=120))
+    finally:
+        scheduler.stop()
+    torch.cuda.synchronize()
+    products_counts = _counts()
+    equal = []
+    # the captured calls alternate: the forward pass, then the reversed
+    # pair (cold), one batch a request
+    for k, r in enumerate(results):
+        fwd, rev = assembled[2 * k], assembled[2 * k + 1]
+        if not rev[2] or not np.array_equal(rev[0], fwd[1]):
+            problems.append(f"products request {k}: the second call is not "
+                            "the reversed pair run cold")
+            continue
+        flow_bw, _, _ = original(session, rev[0], rev[1])
+        bw = session.fetch(flow_bw)[0, :h - 8, :w - 8]
+        occ, conf = fw_bw_products(r.flow, bw)
+        same = (np.array_equal(occ, r.occlusion)
+                and np.array_equal(conf, r.confidence))
+        equal.append(same)
+        if not same:
+            problems.append(f"products request {k}: occlusion/confidence "
+                            "differ from their in-process recomputation")
+    if [r.warm for r in results] != [False] + [True] * (len(results) - 1):
+        problems.append(f"products requests warm {[r.warm for r in results]}")
+    if products_counts != _expect(
+            convex_combine_8x=2 * VIDEO_PRODUCTS_REQUESTS):
+        problems.append(f"products launches {products_counts}, expected "
+                        f"{2 * VIDEO_PRODUCTS_REQUESTS}")
+    serve_readings["products"] = dict(
+        requests=VIDEO_PRODUCTS_REQUESTS, equal=equal,
+        launches=products_counts["convex_combine_8x"],
+        occluded_share=[float(r.occlusion.mean()) for r in results],
+        mean_confidence=[float(r.confidence.mean()) for r in results])
+    del session
+    return serve_readings, problems, {
+        "video_serve": counts, "video_serve_products": products_counts}
+
+
+def phase_video(card):
+    """The streaming-video engine on the card: warm steps on zero carries
+    bit for bit against the base rung (raft f32 and u8, raft/fs; ctf-l3's
+    refusal), raft's warm step card vs CPU (and TF32 outside), the
+    sequence runner's three runs, then ``main serve -c
+    cfg/serve/example.yaml --video`` and products requests."""
+    readings, problems, paths, gpu = _video_models(card)
+    emit(phase="video-models", models=readings, card=card)
+    seq, p, seq_paths = _video_sequences(gpu)
+    emit(phase="video-sequences", card=card, **seq)
+    problems += [f"sequence {m}" for m in p]
+    del gpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_readings, p, serve_paths = _video_serve(card)
+    emit(phase="video-serve", **serve_readings)
+    problems += [f"serve: {m}" for m in p]
+    if problems:
+        raise AssertionError("video phase: " + "; ".join(problems))
+    return {**paths, **seq_paths, **serve_paths}
+
+
 def kernels_line(results):
     """The nine kernels with their checks, times and launches.
     ``launches`` is the count of the main path of the slice that ported
@@ -5626,6 +6040,7 @@ def kernels_line(results):
         **results["phase_zoo"],
         **results["phase_ladder"],
         **results["phase_deterministic_train"],
+        **results["phase_video"],
     }
 
     def launches(name):
@@ -5880,7 +6295,7 @@ def main():
               phase_fs_train_all_levels, phase_lookup_kernels, phase_quant,
               phase_lifecycle, phase_augmented_train, phase_evaluate,
               phase_wire_env, phase_recovery, phase_dicl, phase_zoo,
-              phase_ladder, phase_deterministic_train)
+              phase_ladder, phase_deterministic_train, phase_video)
     for phase in phases:
         run(phase)
     if failed:

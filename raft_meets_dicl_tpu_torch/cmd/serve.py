@@ -6,8 +6,8 @@ weights, or a checkpoint's: ``--checkpoint`` or the config's
 ``checkpoint`` key, relative to the config file; one warm-up batch per
 bucket), runs the built-in open-loop load
 generator against the scheduler and prints the report (p50/p99 latency,
-pairs/s, shed/error counts; with ``--ladder``, the per-class breakdown)
-as JSON.
+pairs/s, shed/error counts; with ``--ladder``, the per-class breakdown;
+with ``--video``, the warm/cold split) as JSON.
 
 Precedence: CLI flag > config file (``serve:`` section) > default; the
 wire format (``--wire-format``, the config's ``wire-format`` key) then
@@ -16,11 +16,15 @@ falls back to ``RMD_WIRE_FORMAT``, the ladder's rungs given bare
 ``RMD_LADDER_THRESHOLD`` and the quantized tier (``--quant``, the
 config's ``quant`` key) to ``RMD_QUANT``, as in JAX. With a ladder the
 built-in client cycles the latency classes ``fast``, ``balanced`` and
-``quality`` over its requests. ``cfg/serve/example.yaml`` serves as it
-ships (u8 wire), with ``--ladder 4,8,12 --quant u8`` too. The ``video``
-key is refused (ROADMAP slice 7 item 2). The device is ``cuda`` unless
-``--device cpu`` is given; without CUDA the command fails rather than
-running on the CPU.
+``quality`` over its requests. With ``--video`` (the config's ``video``
+key) the session builds the warm-start step, the scheduler keeps each
+client's carry, and the built-in client submits four sticky frame streams
+(no classes). ``cfg/serve/example.yaml`` serves as it ships (u8 wire),
+with ``--ladder 4,8,12 --quant u8`` and with ``--video`` too. The device
+is ``cuda`` unless ``--device cpu`` is given; without CUDA the command
+fails rather than running on the CPU. The fleet, ``--prebuild``, the AOT
+store, telemetry and the observability plane are not ported (ROADMAP
+slice 7 items 3, 4 and 7).
 """
 
 import json
@@ -54,8 +58,9 @@ def _resolve(path, cfg_path):
 
 def serve(args):
     """Run the serve command; returns the report it prints, which also
-    counts the dispatched device batches (``batches``, and per bucket
-    ``batches_by_bucket``), the served flows
+    counts the dispatched device batches (``batches``, per bucket
+    ``batches_by_bucket``, one record each in ``batch_log``), a video
+    session cache's counts (``video_sessions``), the served flows
     with a non-finite value (``nonfinite``) and lists the warm-up runs,
     with the completed ``FlowResult``s in submission order (``results``,
     not printed)."""
@@ -63,11 +68,6 @@ def serve(args):
     if getattr(args, "config", None):
         cfg = utils.config.load(args.config)
         cfg = cfg.get("serve", cfg)
-
-    if cfg.get("video"):
-        raise NotImplementedError(
-            "serve config key 'video' is not ported yet (ROADMAP slice 7 "
-            "item 2)")
 
     model_src = getattr(args, "model", None)
     if model_src is None:
@@ -110,15 +110,21 @@ def serve(args):
                 getattr(args, "ladder_threshold", None), cfg,
                 "ladder-threshold"))
         logging.info(f"iteration ladder: {ladder.describe()}")
+    video = bool(_pick(getattr(args, "video", None) or None, cfg, "video"))
+    if video:
+        logging.info("video sessions enabled: warm-start programs + "
+                     "sticky per-client carry cache")
     quant = _pick(getattr(args, "quant", None), cfg, "quant",
                   utils.env.get_str("RMD_QUANT"))
     if quant:
-        logging.info(f"quantized matching tier: {quant} (fast class)")
+        logging.info(f"quantized matching tier: {quant} (fast class + "
+                     "video warm frames)")
 
     session = serving.ServeSession(spec, buckets, wire=wire,
                                    checkpoint=checkpoint,
                                    batch_size=batch_size, ladder=ladder,
-                                   quant=quant, device=args.device)
+                                   video=video, quant=quant,
+                                   device=args.device)
 
     warmup = session.warm_pool()
     for o in warmup:
@@ -143,14 +149,18 @@ def serve(args):
     requests = int(_pick(args.requests, cfg, "requests"))
     rate = float(_pick(args.rate, cfg, "rate"))
     classes = list(serving.CLASSES) if ladder is not None else None
+    if video:
+        # sticky streams force the fast rung; class cycling is moot
+        classes = None
     logging.info(f"open-loop load: {requests} requests at {rate}/s over "
                  f"{len(shapes)} shapes"
-                 + (f", classes {'/'.join(classes)}" if classes else ""))
+                 + (f", classes {'/'.join(classes)}" if classes else "")
+                 + (", sticky video streams" if video else ""))
 
     try:
         report = serving.loadgen.run_open_loop(
             scheduler, shapes, requests=requests, rate_hz=rate,
-            classes=classes)
+            classes=classes, sequence=video)
     finally:
         scheduler.stop(drain=True)
     results = report.pop("results")
@@ -158,10 +168,15 @@ def serve(args):
                               if not np.isfinite(r.flow).all())
     report["batches"] = scheduler.batches
     report["batches_by_bucket"] = dict(scheduler.batches_by_bucket)
+    report["batch_log"] = scheduler.batch_log
     report["warmup"] = warmup
     report["wire"] = wire.describe() if wire is not None else None
     report["ladder"] = ladder.describe() if ladder is not None else None
     report["quant"] = session.quant
+    report["video_sessions"] = (None if scheduler.sessions is None else dict(
+        hits=scheduler.sessions.hits, misses=scheduler.sessions.misses,
+        evictions=scheduler.sessions.evictions,
+        active=scheduler.sessions.active))
 
     logging.info(
         f"served {report['completed']}/{report['requests']} requests: "

@@ -9,7 +9,10 @@ lives on; validation (``inspect.summary.make_val_step``), serving and
 step takes the images as they crossed the host→device copy and decodes
 them first. ``make_rung_fn(model, iterations, cont)`` returns the
 iteration ladder's rung step, which also returns the ``(flow, hidden)``
-carry and the convergence norm ``delta`` (``serve.ServeSession``).
+carry and the convergence norm ``delta`` (``serve.ServeSession``), and
+``make_warm_fn(model, iterations)`` the video warm-start step, which
+re-enters the recurrence from the previous frame's projected coarse flow
+(``video.SequenceRunner``, video serving).
 ``evaluate`` yields one ``EvalSample`` per dataset sample, with one batch
 in flight, and ``EvalRunStats`` accounts a sweep (``main evaluate``,
 ``cmd/eval.py``).
@@ -17,8 +20,7 @@ in flight, and ``EvalRunStats`` accounts a sweep (``main evaluate``,
 Left out of the JAX module: the compile counters (``compiles``, the
 program registry and AOT store: eager PyTorch compiles no programs, so a
 step is a plain closure and there is no cache of built programs either),
-the telemetry ``emit`` (ROADMAP slice 7's ops plane), meshes, and the
-video program (``make_warm_fn``: slice 7's video).
+the telemetry ``emit`` (ROADMAP slice 7's ops plane) and meshes.
 """
 
 import contextlib
@@ -30,6 +32,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..ops import quant as quant_ops
+from ..ops import warp
 from ..utils import env
 
 
@@ -57,6 +60,46 @@ _RUNG_RESERVED = ("iterations", "flow_init", "hidden_init", "return_state",
                   "quant", "quant_clip")
 
 
+def _rung_forward(model, iterations, wire, model_args, quant):
+    """The forward a rung or warm step runs: ``forward(img1, img2, flow,
+    hidden, project=False) -> (final_flow, state)`` under
+    ``torch.inference_mode()``, the wire's decode first; ``project`` moves
+    the carried coarse ``flow`` to the current frame
+    (``warp_backwards(flow, -flow)``) before it seeds ``flow_init``."""
+    quant = quant_ops.normalize_mode(quant)
+    model_args = dict(model_args or {})
+    for reserved in _RUNG_RESERVED:
+        model_args.pop(reserved, None)
+    forward_args = dict(model_args, iterations=iterations, return_state=True)
+    if quant is not None:
+        if "quant" not in inspect.signature(model.module.forward).parameters:
+            raise ValueError(
+                f"model '{model.type}' has no quantized matching tier: a "
+                f"'{quant}' rung needs raft/baseline or raft/fs")
+        forward_args["quant"] = quant
+        forward_args["quant_clip"] = float(env.get_float("RMD_QUANT_CLIP"))
+    adapter = model.get_adapter()
+
+    def forward(img1, img2, flow, hidden, project=False):
+        with torch.inference_mode():
+            if wire is not None:
+                img1, img2, _, _ = wire.decode(img1, img2)
+            kwargs = dict(forward_args)
+            if project:
+                flow = flow.to(torch.float32)
+                flow, _ = warp.warp_backwards(flow, -flow)
+            if flow is not None:
+                kwargs["flow_init"] = flow
+            if hidden is not None:
+                kwargs["hidden_init"] = hidden
+            out, state = model.apply(img1, img2, train=False, **kwargs)
+            result = adapter.wrap_result(out, tuple(img1.shape[1:3]))
+            return result.final(), state
+
+    forward.quant = quant
+    return forward
+
+
 def make_rung_fn(model, iterations, cont=False, wire=None, model_args=None,
                  quant=None):
     """The iteration ladder's rung step: a fixed-``iterations`` inference
@@ -79,32 +122,7 @@ def make_rung_fn(model, iterations, cont=False, wire=None, model_args=None,
     ``torch.inference_mode()``, with the wire's decode first."""
     iterations = int(iterations)
     cont = bool(cont)
-    quant = quant_ops.normalize_mode(quant)
-    model_args = dict(model_args or {})
-    for reserved in _RUNG_RESERVED:
-        model_args.pop(reserved, None)
-    forward_args = dict(model_args, iterations=iterations, return_state=True)
-    if quant is not None:
-        if "quant" not in inspect.signature(model.module.forward).parameters:
-            raise ValueError(
-                f"model '{model.type}' has no quantized matching tier: a "
-                f"'{quant}' rung needs raft/baseline or raft/fs")
-        forward_args["quant"] = quant
-        forward_args["quant_clip"] = float(env.get_float("RMD_QUANT_CLIP"))
-    adapter = model.get_adapter()
-
-    def forward(img1, img2, flow, hidden):
-        with torch.inference_mode():
-            if wire is not None:
-                img1, img2, _, _ = wire.decode(img1, img2)
-            kwargs = dict(forward_args)
-            if flow is not None:
-                kwargs["flow_init"] = flow
-            if hidden is not None:
-                kwargs["hidden_init"] = hidden
-            out, state = model.apply(img1, img2, train=False, **kwargs)
-            result = adapter.wrap_result(out, tuple(img1.shape[1:3]))
-            return result.final(), state
+    forward = _rung_forward(model, iterations, wire, model_args, quant)
 
     if cont:
         def step(img1, img2, flow, hidden):
@@ -115,7 +133,35 @@ def make_rung_fn(model, iterations, cont=False, wire=None, model_args=None,
 
     step.iterations = iterations
     step.cont = cont
-    step.quant = quant
+    step.quant = forward.quant
+    return step
+
+
+def make_warm_fn(model, iterations, wire=None, model_args=None, quant=None):
+    """The video warm-start step: ``step(img1, img2, flow) -> (final_flow,
+    state)``, ``flow`` the previous frame's coarse carry (a rung's or warm
+    step's ``state["flow"]``, on the model's device).
+
+    Inside the step, after the wire's decode, the carry is projected to the
+    current frame (``warp_backwards(flow, -flow)``: ``out(p) = flow(p -
+    flow(p))``, zero where the sample leaves the frame) and seeds
+    ``flow_init``; the hidden state starts fresh (a carried hidden rides
+    the ``cont=True`` rungs). A zero carry projects to exactly zero, so the
+    step is then bit for bit the base rung of ``iterations``: a cache miss
+    degrades to the cold path, never to another answer. ``quant`` routes
+    the step onto the quantized tier as in :func:`make_rung_fn`. The step
+    sets ``.iterations``, ``.cont = False``, ``.warm = True`` and
+    ``.quant``."""
+    iterations = int(iterations)
+    forward = _rung_forward(model, iterations, wire, model_args, quant)
+
+    def step(img1, img2, flow):
+        return forward(img1, img2, flow, None, project=True)
+
+    step.iterations = iterations
+    step.cont = False
+    step.warm = True
+    step.quant = forward.quant
     return step
 
 

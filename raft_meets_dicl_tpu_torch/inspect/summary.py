@@ -22,9 +22,11 @@
   (no gradient, ``train=False``, the stage's model arguments) with
   forward hooks on the modules their flax paths name.
 
-Not ported yet, and refused by name: the forwards-backwards occlusion
-and confidence images (with ``video/``, slice 7), validation shape
-buckets (an environment config, slice 7 ops plane).
+:func:`write_images` also writes the forwards-backwards occlusion and
+confidence images (``fwbw-occlusion``, ``fwbw-confidence``) when a caller
+hands it the products (``video.fw_bw_products``). Not ported yet, and
+refused by name: validation shape buckets (an environment config, ROADMAP
+slice 7 item 7, the ops plane).
 """
 
 import logging
@@ -640,10 +642,12 @@ class SummaryInspector(Inspector):
 
 
 def write_images(writer, pfx, i, img1, img2, target, estimate, valid, meta,
-                 step):
+                 step, occlusion=None, confidence=None):
     """Un-pad, color-code and write one sample's images (NHWC host
     tensors or arrays): both frames, the ground truth and the estimate on
-    one motion scale."""
+    one motion scale. ``occlusion``/``confidence`` are optional
+    forwards-backwards product maps (NHW), written as two more images
+    under the same prefix; without them the four tags are as before."""
     (h0, h1), (w0, w1) = meta[i].original_extents
 
     i1 = (np.asarray(img1[i]) + 1.0) / 2.0
@@ -674,3 +678,14 @@ def write_images(writer, pfx, i, img1, img2, target, estimate, valid, meta,
     writer.add_image(f"{pfx}img2", i2, step, dataformats="HWC")
     writer.add_image(f"{pfx}flow-gt", ft, step, dataformats="HWC")
     writer.add_image(f"{pfx}flow-est", fe, step, dataformats="HWC")
+
+    if occlusion is not None:
+        occ = np.asarray(occlusion[i], bool)[h0:h1, w0:w1]
+        rgba = visual.occlusion_overlay(i1, occ)
+        writer.add_image(f"{pfx}fwbw-occlusion", rgba, step,
+                         dataformats="HWC")
+    if confidence is not None:
+        conf = np.asarray(confidence[i])[h0:h1, w0:w1]
+        rgba = visual.confidence_to_rgba(conf)
+        writer.add_image(f"{pfx}fwbw-confidence", rgba, step,
+                         dataformats="HWC")

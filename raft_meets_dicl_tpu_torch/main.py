@@ -30,8 +30,8 @@ CPU.
 ``serve.yaml`` holds a ``serve:`` section with ``model``, ``buckets`` and
 optionally ``checkpoint``, ``wire-format``, ``batch-size``,
 ``max-wait-ms``, ``queue-limit``, ``requests``, ``rate``, ``ladder``,
-``ladder-threshold`` and ``quant`` (``cfg/serve/example.yaml`` serves as
-it ships); the ``video`` key, a part not ported yet, is refused.
+``ladder-threshold``, ``quant`` and ``video`` (``cfg/serve/example.yaml``
+serves as it ships, with ``--video`` too).
 """
 
 import argparse
@@ -240,11 +240,19 @@ def build_parser():
                        help="flow-delta norm below which the balanced "
                             "class stops escalating (also: "
                             "RMD_LADDER_THRESHOLD) [default: 0.1]")
+    serve.add_argument("--video", action="store_true",
+                       help="video sessions: build the warm-start step, "
+                            "cache per-client carry state (bounded + "
+                            "TTL-evicted), and route sequence requests "
+                            "onto it; the built-in client then submits "
+                            "sticky frame streams (also: the config's "
+                            "'video' key) [default: off]")
     serve.add_argument("--quant", nargs="?", const="u8",
                        choices=["u8", "i8", "off"], metavar="MODE",
                        help="quantized matching tier for the fast ladder "
-                            "class: correlation volumes stored u8/i8 and "
-                            "dequantized by the lookup ('u8' when given "
+                            "class and video warm frames: correlation "
+                            "volumes stored u8/i8 and dequantized by the "
+                            "lookup ('u8' when given "
                             "bare; also: RMD_QUANT, the config's 'quant' "
                             "key) [default: off]")
     serve.add_argument("--wire-format", choices=["f32", "bf16", "u8"],

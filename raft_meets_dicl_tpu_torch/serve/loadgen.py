@@ -7,7 +7,10 @@ self-throttles and hides queueing delay. The generator cycles through a
 mixed-resolution shape list (and, for a ladder session, a latency-class
 list), submits raw synthetic pairs at ``rate_hz``, collects every ticket,
 and reports p50/p99/mean latency, per-span means, throughput, the
-shed/error counts and, with classes, a per-class breakdown.
+shed/error counts, with classes a per-class breakdown and, for a video
+session's sticky streams, the warm/cold split. JAX's client-side retry of
+retryable sheds is not ported (it serves the fleet, ROADMAP slice 7 item
+4).
 """
 
 import time
@@ -34,10 +37,15 @@ def synthetic_pair(shape, rng):
 
 
 def run_open_loop(scheduler, shapes, requests, rate_hz, client="loadgen",
-                  seed=0, result_timeout_s=120.0, classes=None):
+                  seed=0, result_timeout_s=120.0, classes=None,
+                  sequence=False, streams=4):
     """Drive ``scheduler`` with ``requests`` submissions at ``rate_hz``
     over the (H, W) cycle ``shapes``; ``classes`` an optional latency-class
-    cycle (ladder sessions), request i taking ``classes[i % len]``.
+    cycle (ladder sessions), request i taking ``classes[i % len]``. With
+    ``sequence=True`` (video sessions) the requests are ``streams``
+    interleaved sticky client streams, request i going to stream ``i %
+    streams`` (client ``f"{client}-{stream}"``), each stream pinned to one
+    shape so its frames share a bucket and its carry stays usable.
     Returns the report dict (see ``summarize``) plus ``results``, the
     completed ``FlowResult``s in submission order; deterministic inputs
     for a fixed seed."""
@@ -52,11 +60,18 @@ def run_open_loop(scheduler, shapes, requests, rate_hz, client="loadgen",
         delay = t_start + i * interval - time.perf_counter()
         if delay > 0:
             time.sleep(delay)
-        img1, img2 = synthetic_pair(shapes[i % len(shapes)], rng)
+        if sequence:
+            stream = i % max(1, int(streams))
+            shape = shapes[stream % len(shapes)]
+            name = f"{client}-{stream}"
+        else:
+            shape = shapes[i % len(shapes)]
+            name = client
+        img1, img2 = synthetic_pair(shape, rng)
         klass = classes[i % len(classes)] if classes else None
         try:
-            tickets.append(scheduler.submit(img1, img2, client=client,
-                                            klass=klass))
+            tickets.append(scheduler.submit(img1, img2, client=name,
+                                            klass=klass, sequence=sequence))
         except ServeRejected as e:
             rejects[e.reason] = rejects.get(e.reason, 0) + 1
         except ServeError as e:
@@ -120,4 +135,9 @@ def summarize(requests, results, rejects, errors, wall_s):
                 "iterations": dict(sorted(c["iterations"].items())),
             } for k, c in sorted(by_class.items())
         }
+
+    # video breakdown: warm starts across completed frames
+    warm = sum(1 for r in results if r.warm)
+    if warm:
+        report["video"] = {"warm": warm, "cold": completed - warm}
     return report

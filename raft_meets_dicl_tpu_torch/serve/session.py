@@ -19,10 +19,16 @@ one rung step per ``(iterations, cont)`` program of the ladder
 class's base rung on the quantized matching tier; continuations and the
 full budget stay at full precision, as in JAX.
 
+With ``video=True`` the session also builds the warm-start step
+(``evaluation.make_warm_fn``) at the ladder's bottom rung, or at
+``RMD_VIDEO_WARM_ITERATIONS`` without a ladder, with its plain-rung twin
+for cold frames, both on the session's ``quant``, and serves video
+batches through :meth:`ServeSession.run_video`.
+
 Left out of the JAX session: ``program_fingerprint`` and ``compiles()``
 (eager PyTorch builds no programs to fingerprint or count), the readiness
-flag of the observability plane, ``mesh`` (multi-device serving) and
-``video`` (slice 7 item 2), which refuse by name.
+flag of the observability plane (ROADMAP slice 7 item 4) and ``mesh``
+(multi-device serving, slice 7 item 6), which refuses by name.
 
 The session runs on ``device`` ("cuda" unless the caller asks for the
 CPU); a CUDA device without CUDA raises rather than running elsewhere.
@@ -39,11 +45,11 @@ from ..models import wire as wire_
 from ..models.input import ShapeBuckets
 from ..ops import quant as quant_ops
 from ..strategy.checkpoint import Checkpoint
+from ..utils import env
 
 _LATER = {
     "mesh": "multi-device serving is not ported yet (ROADMAP slice 7 item "
             "6)",
-    "video": "video sessions are not ported yet (ROADMAP slice 7 item 2)",
 }
 
 
@@ -55,16 +61,16 @@ class ServeSession:
     ``WireFormat`` (bound to the model's clip/range here). Submitted
     images are raw un-normalized f32; :meth:`encode_image` encodes them to
     the wire dtype, or without a wire format normalizes them, on the host.
-    ``ladder`` an optional ``LadderSpec`` and ``quant`` the fast class's
-    quantized tier (``u8``/``i8``; needs a ladder to reach a request).
+    ``ladder`` an optional ``LadderSpec`` and ``quant`` the quantized
+    tier (``u8``/``i8``) of the fast class's base rung and of the video
+    warm frames; ``video`` builds the warm-start step.
     """
 
     def __init__(self, spec, buckets, wire=None, checkpoint=None,
                  batch_size=4, mesh=None, ladder=None, video=False,
                  quant=None, device="cuda"):
-        for name, value in (("mesh", mesh), ("video", video)):
-            if value:
-                raise NotImplementedError(f"serving: {_LATER[name]}")
+        if mesh:
+            raise NotImplementedError(f"serving: {_LATER['mesh']}")
 
         buckets = ShapeBuckets.from_config(buckets) \
             if not isinstance(buckets, ShapeBuckets) else buckets
@@ -104,6 +110,25 @@ class ServeSession:
                     else None
                 self._rung_fns[(its, cont)] = evaluation.make_rung_fn(
                     self.model, its, cont=cont, wire=wire, quant=q)
+
+        # video sessions: the warm-start step (the fast rung re-entered
+        # from the previous frame's carry, projected inside the step) and
+        # its plain-rung twin for cold frames; with a ladder the bottom
+        # rung is the twin
+        self.video = bool(video)
+        self._warm_fn = None
+        if self.video:
+            self.warm_iterations = (
+                ladder.rungs[0] if ladder is not None
+                else env.get_int("RMD_VIDEO_WARM_ITERATIONS"))
+            self._warm_fn = evaluation.make_warm_fn(
+                self.model, self.warm_iterations, wire=wire,
+                quant=self.quant)
+            if (self.warm_iterations, False) not in self._rung_fns:
+                self._rung_fns[(self.warm_iterations, False)] = \
+                    evaluation.make_rung_fn(
+                        self.model, self.warm_iterations, wire=wire,
+                        quant=self.quant)
 
     def _init_variables(self, checkpoint):
         # seed 0 on a CPU generator, as the JAX session's PRNGKey(0): the
@@ -172,6 +197,30 @@ class ServeSession:
         self._synchronize()
         return flow, {"rungs": rungs, "iterations": executed}
 
+    def run_video(self, img1, img2, carry=None):
+        """One video batch; returns ``(flow, state, info)``.
+
+        ``carry`` is the batch's previous-frame coarse flow (the
+        scheduler's stacked per-member rows, host numpy or a tensor): the
+        warm step projects it inside. ``carry=None`` runs the plain rung
+        twin, a true cold start, bit for bit what the warm step gives on an
+        all-zero carry. ``flow`` is a device tensor whose computation has
+        finished; ``state`` stays on the device (the scheduler fetches its
+        ``flow`` rows and stores them per client)."""
+        if not self.video:
+            raise RuntimeError("run_video needs a video=True session")
+        x1, x2 = self._to_device(img1, img2)
+        warm = carry is not None
+        if warm:
+            flow, state = self._warm_fn(
+                x1, x2, torch.as_tensor(carry).to(self.device))
+        else:
+            flow, state = self._rung_fns[(self.warm_iterations, False)](
+                x1, x2)
+        self._synchronize()
+        return flow, state, {"rungs": 1, "iterations": self.warm_iterations,
+                             "warm": warm}
+
     def _to_device(self, img1, img2):
         return tuple(wire_.as_tensor(np.ascontiguousarray(x)).to(self.device)
                      for x in (img1, img2))
@@ -227,18 +276,29 @@ class ServeSession:
                               device=self.device)
             record(bucket, None, self.eval_fn,
                    lambda: self.eval_fn(img, img))
-            if self.ladder is None:
+            carry = None
+            if self.ladder is not None:
+                lad = self.ladder
+                base = self._rung_fns[(lad.rungs[0], False)]
+                _, carry = record(bucket, f"base:{lad.rungs[0]}", base,
+                                  lambda: base(img, img))
+                for inc in sorted(set(lad.increments())):
+                    step = self._rung_fns[(inc, True)]
+                    record(bucket, f"cont:+{inc}", step,
+                           lambda: step(img, img, carry["flow"],
+                                        carry["hidden"]))
+                full = self._rung_fns[(lad.rungs[-1], False)]
+                record(bucket, f"full:{lad.rungs[-1]}", full,
+                       lambda: full(img, img))
+            if not self.video:
                 continue
-            lad = self.ladder
-            base = self._rung_fns[(lad.rungs[0], False)]
-            _, state = record(bucket, f"base:{lad.rungs[0]}", base,
-                              lambda: base(img, img))
-            for inc in sorted(set(lad.increments())):
-                step = self._rung_fns[(inc, True)]
-                record(bucket, f"cont:+{inc}", step,
-                       lambda: step(img, img, state["flow"],
-                                    state["hidden"]))
-            full = self._rung_fns[(lad.rungs[-1], False)]
-            record(bucket, f"full:{lad.rungs[-1]}", full,
-                   lambda: full(img, img))
+            # the cold twin (with a ladder its base rung was it), then the
+            # warm step fed the twin's carry (the coarse shape, without
+            # knowing the model's downsampling factor)
+            if carry is None:
+                twin = self._rung_fns[(self.warm_iterations, False)]
+                _, carry = record(bucket, f"base:{self.warm_iterations}",
+                                  twin, lambda: twin(img, img))
+            record(bucket, f"warm:{self.warm_iterations}", self._warm_fn,
+                   lambda: self._warm_fn(img, img, carry["flow"]))
         return outcomes

@@ -54,6 +54,12 @@
   config's ``quant`` key win).
 - ``RMD_QUANT_CLIP``: the fraction of each level's abs-max the quantized
   range spans (default 1.0; values beyond it saturate).
+- ``RMD_VIDEO_SESSIONS``: the capacity of a video server's per-client
+  session cache (default 64; least recently used past it).
+- ``RMD_VIDEO_SESSION_TTL_S``: idle seconds before a video session's
+  carry expires (default 30.0).
+- ``RMD_VIDEO_WARM_ITERATIONS``: the warm-start program's iterations of a
+  video session without a ladder (default 4; with one its bottom rung).
 """
 
 import os
@@ -69,6 +75,9 @@ _DEFAULTS = {
     "RMD_LADDER": "4,8,12",
     "RMD_LADDER_THRESHOLD": 0.1,
     "RMD_QUANT_CLIP": 1.0,
+    "RMD_VIDEO_SESSIONS": 64,
+    "RMD_VIDEO_SESSION_TTL_S": 30.0,
+    "RMD_VIDEO_WARM_ITERATIONS": 4,
 }
 
 
@@ -81,10 +90,13 @@ def get_float(name, default=None):
     return float(value)
 
 
-def get_int(name, default=0):
-    """The knob's value as an int, ``default`` when unset or empty."""
+def get_int(name, default=None):
+    """The knob's value as an int; when unset or empty, ``default``, else
+    the knob's registered default, else 0."""
     value = os.environ.get(name)
-    return default if value in (None, "") else int(value)
+    if value in (None, ""):
+        return _DEFAULTS.get(name, 0) if default is None else default
+    return int(value)
 
 
 def get_str(name):

@@ -54,6 +54,7 @@ from raft_meets_dicl_tpu_torch.strategy import checkpoint as tchk
 from test_torch_port_train import (  # noqa: F401 (fixtures)
     GRAD_REL_L2_STEM, GRADIENT, LOSS_REL, OPTIMIZER, PARAM_ATOL, STATS_ATOL,
     STEM, _cfg, _check_grads, _one_thread, _write_tree, batch, variables)
+from test_torch_port_train import port_on_one_thread  # noqa: F401
 
 tspec = strategy.spec
 

@@ -36,6 +36,8 @@ import raft_meets_dicl_tpu_torch.models.input as tinput
 from raft_meets_dicl_tpu_torch.inspect import writer as twriter
 from test_torch_port_combinators import (assert_samples_equal, things_source,
                                          things_tree)
+from test_torch_port_train import _flax_init
+from test_torch_port_train import port_on_one_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 
@@ -292,8 +294,7 @@ def _write_lockstep_tree(root):
 
     jspec = jmodels.load(model)
     x = jnp.zeros((1, 80, 144, 3))
-    variables = jax.jit(lambda k: jspec.model.init(k, x, x))(
-        jax.random.PRNGKey(11))
+    variables = _flax_init(jspec.model, 11, x, x)
     jchk.Checkpoint(
         model="raft/baseline", iteration=jchk.Iteration(0, None, 0),
         metrics=None,

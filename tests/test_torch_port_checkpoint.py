@@ -45,6 +45,8 @@ from raft_meets_dicl_tpu_torch import main as port_main
 from raft_meets_dicl_tpu_torch.serve import loadgen
 from raft_meets_dicl_tpu_torch.strategy import checkpoint as tchk
 from raft_meets_dicl_tpu_torch.utils import msgpack as tmsgpack
+from test_torch_port_train import _flax_init
+from test_torch_port_train import port_on_one_thread  # noqa: F401
 
 tspec = strategy.spec
 
@@ -360,8 +362,7 @@ def jax_tree():
     adam-w state, and leaves of every kind flax's msgpack writes."""
     model = jmodels.load(_tiny_cfg())
     x = jnp.zeros((1, 64, 96, 3))
-    variables = jax.jit(lambda k: model.model.init(k, x, x))(
-        jax.random.PRNGKey(4))
+    variables = jax.tree.map(jnp.asarray, _flax_init(model.model, 4, x, x))
     tx, _ = jspec.OptimizerSpec.from_config(OPTIMIZER).build(
         jspec.GradientSpec.from_config(GRADIENT))
     opt = serialization.to_state_dict(tx.init(variables["params"]))
@@ -441,15 +442,16 @@ def test_jax_checkpoint_crc_and_optimizer_refusal(tmp_path, jax_tree):
 
 @pytest.fixture(scope="module")
 def full_jax(tmp_path_factory):
-    """The tiny f32 raft/baseline at 3 iterations: JAX-initialized weights
-    written by the JAX package's ``Checkpoint.save``, and the JAX forward
+    """The tiny f32 raft/baseline at 3 iterations: weights drawn as flax
+    initializes them (``_flax_init``), written by the JAX package's
+    ``Checkpoint.save``, and the JAX forward
     of request 0 of the serve load generator (seed 0, 64x96)."""
     root = tmp_path_factory.mktemp("jaxckpt")
     spec = jmodels.load(_serve_cfg())
     raw1, raw2 = loadgen.synthetic_pair((64, 96), np.random.default_rng(0))
     img1, img2 = (jnp.asarray(2 * x[None] - 1) for x in (raw1, raw2))
-    variables = jax.jit(lambda k: spec.model.init(k, img1, img2))(
-        jax.random.PRNGKey(2))
+    variables = jax.tree.map(jnp.asarray,
+                             _flax_init(spec.model, 2, img1, img2))
     flows = jax.jit(lambda v: spec.model.apply(v, img1, img2))(variables)
     path = root / "jax.ckpt"
     jchk.Checkpoint(
@@ -510,8 +512,7 @@ def test_jax_checkpoint_resume_step_matches_jax(tmp_path):
     jm = jmodels.load(_tiny_cfg())
     jm.model.on_stage(None, freeze_batchnorm=True)
     x1 = jnp.asarray(batch[0])
-    variables = jax.jit(lambda k: jm.model.init(k, x1, x1))(
-        jax.random.PRNGKey(5))
+    variables = jax.tree.map(jnp.asarray, _flax_init(jm.model, 5, x1, x1))
     jtx, jlr = jspec.OptimizerSpec.from_config(OPTIMIZER).build(
         jspec.GradientSpec.from_config(GRADIENT))
     jsched = jspec.SchedulerSpec.from_config(SCHEDULE).build(jlr,

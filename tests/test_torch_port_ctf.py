@@ -37,7 +37,8 @@ from raft_meets_dicl_tpu_torch import main as port_main
 from raft_meets_dicl_tpu_torch import strategy
 from raft_meets_dicl_tpu_torch.data import io as tio
 from raft_meets_dicl_tpu_torch.serve import loadgen
-from test_torch_port_train import _one_thread
+from test_torch_port_train import _flax_init, _one_thread
+from test_torch_port_train import port_on_one_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 
@@ -45,16 +46,21 @@ PARAMS = {"corr-radius": 4, "corr-channels": 16, "context-channels": 32,
           "recurrent-channels": 32, "corr-args": {"mnet_scale": 0.25}}
 LOSS = {"type": "raft+dicl/mlseq",
         "arguments": {"ord": 1, "gamma": 0.85, "alpha": [0.38, 0.6, 1.0]}}
-ITERATIONS = (4, 3, 3)
-# the train step runs fewer iterations: the JAX side's unrolled live-BN
-# step compiles in ~35 s at (2, 1, 1)
+# the forwards run two iterations at the coarsest level, one at the others
+# (each level's every output structure, with the (prev, flow) pairs of a
+# level's first iteration and a later one); the port's forward is most of
+# a case's time
+ITERATIONS = (2, 1, 1)
+# the train step: the JAX side's unrolled live-BN step compiles in ~35 s
+# at (2, 1, 1)
 STEP_ITERATIONS = (2, 1, 1)
 
-# Forward bounds, relative to each output's largest |flow| (these random
-# weights give flows up to ~1 px at the coarsest level and ~130 px at the
-# finest). float32: the same arithmetic summed in another order (native
-# torch convs vs XLA:CPU at 'highest') through 10 recurrent iterations;
-# reads <= 2.3e-6 (1.8e-4 px on the finest level's 129 px)
+# Forward bounds, relative to each output's largest |flow| (the JAX init's
+# random weights gave flows up to ~1 px at the coarsest level and ~130 px
+# at the finest). float32: the same arithmetic summed in another order
+# (native torch convs vs XLA:CPU at 'highest') through the recurrent
+# iterations; 10 of them read <= 2.3e-6 (1.8e-4 px on the finest level's
+# 129 px)
 F32_REL = 1e-5
 # bf16 policy: the two frameworks round to bf16 at other places (conv bias
 # adds, GRU gate sums, the split first MatchingNet conv). That noise is
@@ -130,21 +136,13 @@ def batch():
 
 @pytest.fixture(scope="module")
 def variables(batch):
-    """JAX ctf-l3 variables (numpy tree) from the JAX package's own init,
-    batch statistics drawn away from their (0, 1) init. The f32 and the
-    bf16-policy models share the tree."""
-    model = jmodels.load(_cfg()).model
-    x1, x2 = jnp.asarray(batch[0]), jnp.asarray(batch[1])
-    v = jax.tree.map(np.asarray, jax.jit(
-        lambda k: model.init(k, x1, x2))(jax.random.PRNGKey(1)))
-    rs = np.random.RandomState(2)
-    for path, leaf in convert._named_leaves(v["batch_stats"]):
-        node = v["batch_stats"]
-        for p in path[:-1]:
-            node = node[p]
-        node[path[-1]] = ((0.3 * rs.randn(*leaf.shape)) if path[-1] == "mean"
-                          else 0.5 + rs.rand(*leaf.shape)).astype(np.float32)
-    return v
+    """JAX ctf-l3 variables (numpy tree) over the JAX init's shapes
+    (``jax.eval_shape``: no init program compiled), drawn from a seed as
+    flax initializes them (``_flax_init``), batch statistics away from
+    their (0, 1) init. The f32 and the bf16-policy models share the
+    tree."""
+    return _flax_init(jmodels.load(_cfg()).model, 1, jnp.asarray(batch[0]),
+                      jnp.asarray(batch[1]))
 
 
 def _port_model(cfg, variables):
@@ -167,14 +165,34 @@ def _max_rel(actual, expected):
     return float(np.abs(actual.numpy() - e).max() / max(np.abs(e).max(), 1.0))
 
 
+@pytest.fixture(scope="module")
+def jax_outputs(variables, batch):
+    """The JAX f32 forward with ``corr_flow`` and ``prev_flow``: every
+    level's readout list before its flow list, entries (prev, flow)
+    pairs. The flags only select what is returned (the readouts are
+    computed either way), so the other structures are parts of this one
+    (``_select``): one JAX program for the three cases."""
+    x1, x2 = jnp.asarray(batch[0]), jnp.asarray(batch[1])
+    model = jmodels.load(_cfg()).model
+    return jax.tree.map(np.asarray, jax.jit(
+        lambda v: model.apply(v, x1, x2, corr_flow=True, prev_flow=True))(
+            jax.tree.map(jnp.asarray, variables)))
+
+
+def _select(outputs, args):
+    """The JAX output structure for ``args`` out of ``jax_outputs``'."""
+    if args.get("prev_flow"):
+        return outputs
+    levels = [[entry[-1] for entry in level] for level in outputs]
+    return levels if args.get("corr_flow") else levels[1::2]
+
+
 @pytest.mark.parametrize("args", [
     {}, {"corr_flow": True}, {"corr_flow": True, "prev_flow": True},
 ], ids=["flows", "corr_flow", "corr_flow+prev_flow"])
-def test_ctf_l3_f32_matches_jax_every_level(variables, batch, args):
-    x1, x2 = jnp.asarray(batch[0]), jnp.asarray(batch[1])
-    model = jmodels.load(_cfg()).model
-    expected = jax.jit(lambda v: model.apply(v, x1, x2, **args))(
-        jax.tree.map(jnp.asarray, variables))
+def test_ctf_l3_f32_matches_jax_every_level(variables, batch, jax_outputs,
+                                            args):
+    expected = _select(jax_outputs, args)
 
     spec = _port_model(_cfg(), variables)
     actual, final = evaluation.make_eval_fn(spec.model, args)(
@@ -230,7 +248,7 @@ def _policy_dtypes(module):
     return seen, handles
 
 
-def test_ctf_l3_bf16_policy_matches_jax(variables, batch):
+def test_ctf_l3_bf16_policy_matches_jax(variables, batch, jax_outputs):
     x1, x2 = jnp.asarray(batch[0]), jnp.asarray(batch[1])
     model = jmodels.load(_cfg(mixed_precision=True)).model
     expected = jax.jit(lambda v: model.apply(v, x1, x2))(
@@ -259,11 +277,9 @@ def test_ctf_l3_bf16_policy_matches_jax(variables, batch):
         * sum(ITERATIONS)
     assert set(seen["coords"]) == set(seen["cost"]) == {torch.float32}
 
-    # the policy changes the result: the same weights in float32 differ
-    f32, _ = evaluation.make_eval_fn(_port_model(_cfg(), variables).model)(
-        *imgs)
-    f32 = [[flow.numpy() for flow in level] for level in f32]
-    assert _max_rel(actual, f32) >= BF16_MIN_EFFECT
+    # the policy changes the result: the same weights in float32 (JAX's
+    # f32 run, which the port's matches within F32_REL) differ
+    assert _max_rel(actual, _select(jax_outputs, {})) >= BF16_MIN_EFFECT
 
 
 # -- one train step in lockstep ----------------------------------------------------
@@ -444,8 +460,7 @@ def test_raft_softargmax_dap_matches_jax():
                   for _ in range(2))
     x1, x2 = jnp.asarray(img1), jnp.asarray(img2)
     jm = jmodels.load(cfg).model
-    v = jax.tree.map(np.asarray, jax.jit(
-        lambda k: jm.init(k, x1, x2))(jax.random.PRNGKey(4)))
+    v = _flax_init(jm, 4, x1, x2)
     reg = v["params"]["ScanCheckpoint_RaftStep_0"]["SoftArgMaxFlowRegression_0"]
     assert sorted(reg) == ["DisplacementAwareProjection_0",
                            "DisplacementAwareProjection_1"]

@@ -35,6 +35,8 @@ from raft_meets_dicl_tpu_torch.models.common.loss import mlseq as tmlseq
 from raft_meets_dicl_tpu_torch.models.common.util import init_parameters
 from raft_meets_dicl_tpu_torch.models.impls import raft_dicl_ctf as tctf
 from raft_meets_dicl_tpu_torch.ops import sample as tsample
+from test_torch_port_train import _flax_init
+from test_torch_port_train import port_on_one_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 
@@ -208,21 +210,13 @@ def test_matching_net_pair_form_matches_stacked(train):
 @pytest.fixture(scope="module")
 def cmod_variables():
     """JAX correlation-module variables (radius 2, 8 channels, MatchingNet
-    at scale 0.5, standard-init DAP), batch statistics drawn away from
-    their (0, 1) init."""
+    at scale 0.5, standard-init DAP) drawn as flax initializes them
+    (``_flax_init``), batch statistics away from their (0, 1) init."""
     rs = np.random.RandomState(7)
     f1 = jnp.asarray(rs.randn(2, 8, 12, 8), jnp.float32)
     coords = jnp.zeros((2, 8, 12, 2), jnp.float32)
     module = jcorr.CorrelationModule(8, 2, dap_init="standard", mnet_scale=0.5)
-    v = jax.tree.map(np.asarray, jax.jit(
-        lambda key: module.init(key, f1, f1, coords))(jax.random.PRNGKey(3)))
-    for path, leaf in convert._named_leaves(v["batch_stats"]):
-        node = v["batch_stats"]
-        for p in path[:-1]:
-            node = node[p]
-        node[path[-1]] = ((0.3 * rs.randn(*leaf.shape)) if path[-1] == "mean"
-                          else 0.5 + rs.rand(*leaf.shape)).astype(np.float32)
-    return module, v
+    return module, _flax_init(module, 3, f1, f1, coords)
 
 
 @pytest.mark.parametrize("dap", [True, False])
@@ -279,8 +273,7 @@ def test_pyramid_encoder_matches_jax(levels, norm):
     img = rs.uniform(-1, 1, (2, 128, 128, 3)).astype(np.float32)
     jmodule = jenc.FeatureEncoderPyramid(output_dim=16, levels=levels,
                                          norm_type=norm)
-    v = jax.tree.map(np.asarray, jax.jit(
-        lambda key: jmodule.init(key, jnp.asarray(img)))(jax.random.PRNGKey(4)))
+    v = _flax_init(jmodule, 4, jnp.asarray(img))
     expected = jmodule.apply(v, jnp.asarray(img))
 
     state = convert.jax_variables_to_state_dict(
@@ -304,10 +297,7 @@ def test_hidden_state_upsamplers_match_jax(kind):
     h_prev = np.tanh(rs.randn(2, 4, 6, 16)).astype(np.float32)
     h_init = np.tanh(rs.randn(2, 8, 12, 16)).astype(np.float32)
     jmodule = jhsup.make_hidden_state_upsampler(kind, 16)
-    v = jax.jit(lambda key: jmodule.init(key, jnp.asarray(h_prev),
-                                         jnp.asarray(h_init)))(
-        jax.random.PRNGKey(5))
-    v = jax.tree.map(np.asarray, v)
+    v = _flax_init(jmodule, 5, jnp.asarray(h_prev), jnp.asarray(h_init))
     if kind == "bilinear":
         # away from the identity init, so the conv is exercised
         v["params"]["Conv_0"]["kernel"] = (

@@ -43,6 +43,7 @@ from raft_meets_dicl_tpu_torch.ops import pool as tpool
 from test_torch_port_ctf import STATS_ATOL
 from test_torch_port_dicl import _close, _nchw
 from test_torch_port_train import _one_thread
+from test_torch_port_train import port_on_one_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

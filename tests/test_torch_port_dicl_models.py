@@ -56,6 +56,7 @@ from test_torch_port_ctf import (
     F32_REL, GRAD_REL_L2, GRAD_REL_L2_FINE, LOSS_REL, STATS_ATOL, ZERO_GRAD)
 from test_torch_port_dicl_family import _draw
 from test_torch_port_train import _one_thread
+from test_torch_port_train import port_on_one_thread  # noqa: F401
 
 sys.path.insert(0, str(Path(__file__).parent.parent / "scripts"))
 import chkpt_convert  # noqa: E402

@@ -39,6 +39,7 @@ from raft_meets_dicl_tpu_torch import strategy as tstrategy
 from raft_meets_dicl_tpu_torch.ops import sample, windowed
 from test_torch_port_cfg_corpus import _build
 from test_torch_port_train import _one_thread, _write_tree
+from test_torch_port_train import port_on_one_thread  # noqa: F401
 
 # the modules (each package's ``cmd`` binds ``train`` to the function)
 jtrain_cmd = importlib.import_module("raft_meets_dicl_tpu.cmd.train")

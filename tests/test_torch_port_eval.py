@@ -40,6 +40,8 @@ from raft_meets_dicl_tpu_torch.models import input as tinput
 from raft_meets_dicl_tpu_torch.strategy import checkpoint as tchk
 from raft_meets_dicl_tpu_torch.utils import config as tconfig
 from test_torch_port_inspect import FRACTION_ATOL, LOSS_REL, _tiny_cfg
+from test_torch_port_train import _flax_init
+from test_torch_port_train import port_on_one_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 
@@ -97,7 +99,8 @@ def one_thread():
 @pytest.fixture(scope="module")
 def tree(tmp_path_factory):
     """4 frames (3 pairs) at 64x96 with .flo flows, a source yaml, the
-    tiny model and its JAX-initialized weights as a JAX checkpoint."""
+    tiny model and weights drawn as flax initializes them (``_flax_init``)
+    as a JAX checkpoint."""
     root = tmp_path_factory.mktemp("eval")
     rs = np.random.RandomState(21)
     (root / "frames").mkdir()
@@ -116,8 +119,7 @@ def tree(tmp_path_factory):
 
     spec = jmodels.load(_tiny_cfg())
     x = jnp.zeros((1, *SHAPE, 3))
-    variables = jax.jit(lambda k: spec.model.init(k, x, x))(
-        jax.random.PRNGKey(11))
+    variables = jax.tree.map(jnp.asarray, _flax_init(spec.model, 11, x, x))
     _inits[_config_key(spec.model)] = variables
     jchk.Checkpoint(
         model="raft/baseline", iteration=jchk.Iteration(0, None, 0),

@@ -1,6 +1,6 @@
 """PyTorch port: ``raft/fs`` held against the JAX ``RaftFsModule`` on the
-CPU, with weights bridged from the JAX init (``convert``), on the same
-numpy batch.
+CPU, with weights bridged (``convert``) from JAX variables drawn over the
+JAX init's shapes as flax initializes them, on the same numpy batch.
 
 - ``volume_level_split`` against the JAX one on the shapes users run
   (448x1024 b2/b4, 1080x1920 b1/b2/b4, 2560x1072 b1 under the bf16 policy)
@@ -36,7 +36,8 @@ from raft_meets_dicl_tpu_torch import main as port_main
 from raft_meets_dicl_tpu_torch.data import io as tio
 from raft_meets_dicl_tpu_torch.models.impls import raft_fs as traft_fs
 from raft_meets_dicl_tpu_torch.utils import env
-from test_torch_port_train import _one_thread
+from test_torch_port_train import _flax_init, _one_thread
+from test_torch_port_train import port_on_one_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 
@@ -163,12 +164,27 @@ def images():
 
 @pytest.fixture(scope="module")
 def variables(images):
-    """JAX raft/fs variables (numpy tree) at full width from the JAX
-    package's own init; the f32 and bf16-policy models share them."""
-    model = jmodels.load(_cfg()).model
-    x1, x2 = (jnp.asarray(x) for x in images)
-    return jax.tree.map(np.asarray, jax.jit(
-        lambda k: model.init(k, x1, x2))(jax.random.PRNGKey(1)))
+    """JAX raft/fs variables (numpy tree) at full width over the JAX init's
+    shapes, drawn from a seed as flax initializes them (``_flax_init``: no
+    init program compiled); the f32 and bf16-policy models share them."""
+    return _flax_init(jmodels.load(_cfg()).model, 1,
+                      *(jnp.asarray(x) for x in images))
+
+
+@pytest.fixture(scope="module")
+def f32_runs(variables, images):
+    """split -> (the JAX f32 forward, the port's ``_port_forward``), each
+    computed once for the f32 and the bf16-policy cases of the split."""
+    runs = {}
+
+    def get(split):
+        if split not in runs:
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setenv("RMD_FS_VOLUME_GIB", SPLITS[split][0])
+                runs[split] = (_jax_forward(False, variables, images),
+                               _port_forward(False, variables, images))
+        return runs[split]
+    return get
 
 
 def _jax_forward(mixed_precision, variables, images):
@@ -246,13 +262,11 @@ def _max_abs(actual, expected):
 
 
 @pytest.mark.parametrize("split", list(SPLITS))
-def test_raft_fs_f32_matches_jax(split, variables, images, monkeypatch):
+def test_raft_fs_f32_matches_jax(split, f32_runs, monkeypatch):
     gib, n_windowed = SPLITS[split]
     monkeypatch.setenv("RMD_FS_VOLUME_GIB", gib)
     assert traft_fs.volume_level_split((1, 8, 12), 4, 4) == n_windowed
-    expected = _jax_forward(False, variables, images)
-
-    actual, final, calls = _port_forward(False, variables, images)
+    expected, (actual, final, calls) = f32_runs(split)
     _check_calls(calls, n_windowed, torch.float32)
     assert len(actual) == len(expected) == ITERATIONS
     assert final is actual[-1]
@@ -263,13 +277,13 @@ def test_raft_fs_f32_matches_jax(split, variables, images, monkeypatch):
 
 
 @pytest.mark.parametrize("split", list(SPLITS))
-def test_raft_fs_bf16_policy_matches_jax(split, variables, images,
+def test_raft_fs_bf16_policy_matches_jax(split, variables, images, f32_runs,
                                          monkeypatch):
     gib, n_windowed = SPLITS[split]
     monkeypatch.setenv("RMD_FS_VOLUME_GIB", gib)
     assert traft_fs.volume_level_split((1, 8, 12), 4, 2) == n_windowed
     expected = _jax_forward(True, variables, images)
-    jax_f32 = _jax_forward(False, variables, images)
+    jax_f32, (f32, _, _) = f32_runs(split)
 
     actual, _, calls = _port_forward(True, variables, images)
     _check_calls(calls, n_windowed, torch.bfloat16)
@@ -282,7 +296,6 @@ def test_raft_fs_bf16_policy_matches_jax(split, variables, images,
         assert _max_abs(a, e) <= BF16_REL * scale
 
     # the policy changes the result: the same weights in float32 differ
-    f32, _, _ = _port_forward(False, variables, images)
     assert max(float((a - b).abs().max()) for a, b in zip(actual, f32)) \
         >= BF16_MIN_EFFECT * scale
 

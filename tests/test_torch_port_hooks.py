@@ -38,6 +38,7 @@ from raft_meets_dicl_tpu_torch import inspect as tinspect
 from raft_meets_dicl_tpu_torch import main as port_main
 from raft_meets_dicl_tpu_torch.inspect.hooks.common import Hook as THook
 from test_torch_port_train import MODEL_PARAMS, _cfg, _one_thread, _write_tree
+from test_torch_port_train import port_on_one_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

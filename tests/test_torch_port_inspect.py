@@ -45,7 +45,8 @@ from raft_meets_dicl_tpu_torch import visual as tvisual
 from raft_meets_dicl_tpu_torch.inspect import summary as tsummary
 from raft_meets_dicl_tpu_torch.inspect import writer as twriter
 from raft_meets_dicl_tpu_torch.strategy import checkpoint as tchk
-from test_torch_port_train import _one_thread
+from test_torch_port_train import _flax_init, _one_thread
+from test_torch_port_train import port_on_one_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 
@@ -194,8 +195,7 @@ def test_validation_step_matches_jax():
 
     jspec = jmodels.load(_tiny_cfg())
     x1, x2 = jnp.asarray(img1), jnp.asarray(img2)
-    variables = jax.jit(lambda k: jspec.model.init(k, x1, x2))(
-        jax.random.PRNGKey(3))
+    variables = jax.tree.map(jnp.asarray, _flax_init(jspec.model, 3, x1, x2))
 
     def jstep(v):
         out = jspec.model.apply(v, x1, x2)
@@ -327,13 +327,12 @@ def test_inspect_configs_match_jax(name):
 def _write_tree(root):
     """Train (4 pairs) and validation (2 pairs) scenes at 64x96, the tiny
     model, a two-stage ``mode: best`` strategy with validation entries
-    (sample 0's images), and the JAX-initialized weights as a JAX
+    (sample 0's images), and weights drawn as flax initializes them as a JAX
     checkpoint."""
     _write_data(root)
     spec = jmodels.load(_tiny_cfg())
     x = jnp.zeros((1, 64, 96, 3))
-    variables = jax.jit(lambda k: spec.model.init(k, x, x))(
-        jax.random.PRNGKey(11))
+    variables = _flax_init(spec.model, 11, x, x)
     jchk.Checkpoint(
         model="raft/baseline", iteration=jchk.Iteration(0, None, 0),
         metrics=None,

@@ -17,6 +17,7 @@ import torch
 
 from raft_meets_dicl_tpu.ops import pallas as jax_pallas
 from raft_meets_dicl_tpu_torch.ops import convex, cuda_build
+from test_torch_port_train import port_on_one_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

@@ -46,6 +46,7 @@ from test_torch_port_dicl_models import _port, _variables
 from test_torch_port_quant import QUANT_REL
 from test_torch_port_raft import F32_MAX_ABS_PX
 from test_torch_port_train import _one_thread
+from test_torch_port_train import port_on_one_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 
@@ -426,8 +427,16 @@ def test_unknown_classes_fail_typed():
 
 
 @pytest.mark.parametrize("option,message", [
-    ({"video": True}, "slice 7 item 2"), ({"mesh": "-1"}, "slice 7 item 6")])
+    # video is ported: a ladder session builds its warm-start step at the
+    # bottom rung, on the fast class's quantized tier
+    pytest.param({"video": True}, None, id="option0-slice 7 item 2"),
+    ({"mesh": "-1"}, "slice 7 item 6")])
 def test_ladder_session_refuses_video_and_mesh(option, message):
+    if message is None:
+        session = _session(**option)
+        assert session.warm_iterations == 2
+        assert session._warm_fn.quant == "u8"
+        return
     with pytest.raises(NotImplementedError, match=message):
         _session(**option)
 

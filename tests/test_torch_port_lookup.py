@@ -34,6 +34,7 @@ import torch
 from raft_meets_dicl_tpu_torch.ops import corr as tcorr
 from raft_meets_dicl_tpu_torch.ops import lookup as tlookup
 from raft_meets_dicl_tpu_torch.scripts import probe_fused_lookup as tprobe
+from test_torch_port_train import port_on_one_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

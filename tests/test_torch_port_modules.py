@@ -1,7 +1,8 @@
-"""PyTorch port: the RAFT modules with weights bridged from the JAX
-package's own init (``convert.jax_variables_to_state_dict``), each held
-against its JAX counterpart on the CPU in float32; the weight bridge
-against ``scripts/chkpt_convert.py``; config loading in both packages."""
+"""PyTorch port: the RAFT modules with weights bridged from JAX variables
+drawn over the JAX init's shapes (``convert.jax_variables_to_state_dict``),
+each held against its JAX counterpart on the CPU in float32; the weight
+bridge against ``scripts/chkpt_convert.py``; config loading in both
+packages."""
 
 import sys
 from pathlib import Path
@@ -22,6 +23,8 @@ from raft_meets_dicl_tpu_torch.models.impls import raft as traft
 
 sys.path.insert(0, str(Path(__file__).parent.parent / "scripts"))
 import chkpt_convert  # noqa: E402
+from test_torch_port_train import _flax_init  # noqa: E402
+from test_torch_port_train import port_on_one_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.torch_port
 
@@ -41,25 +44,13 @@ _CFG = {
 
 @pytest.fixture(scope="module")
 def variables():
-    """JAX raft/baseline variables (numpy tree) from the JAX package's own
-    init, with batch statistics drawn away from their (0, 1) init so the
-    batch-norm mapping is exercised."""
+    """JAX raft/baseline variables (numpy tree) over the JAX init's shapes,
+    drawn from a seed as flax initializes them (``_flax_init``: no init
+    program compiled), with batch statistics away from their (0, 1) init
+    so the batch-norm mapping is exercised."""
     spec = jmodels.load(_CFG)
     img = jnp.zeros((1, 64, 96, 3), jnp.float32)
-    init = jax.jit(lambda key: spec.model.init(key, img, img, iterations=1))
-    v = jax.tree.map(np.asarray, init(jax.random.PRNGKey(7)))
-    rs = np.random.RandomState(0)
-    stats = {}
-    for path, leaf in convert._named_leaves(v["batch_stats"]):
-        node = stats
-        for p in path[:-1]:
-            node = node.setdefault(p, {})
-        if path[-1] == "mean":
-            node["mean"] = (0.3 * rs.randn(*leaf.shape)).astype(np.float32)
-        else:
-            node["var"] = (0.5 + rs.rand(*leaf.shape)).astype(np.float32)
-    v["batch_stats"] = stats
-    return v
+    return _flax_init(spec.model, 7, img, img, iterations=1)
 
 
 @pytest.fixture(scope="module")

@@ -11,6 +11,7 @@ from raft_meets_dicl_tpu.ops import corr as jcorr
 from raft_meets_dicl_tpu.ops import upsample as jup
 from raft_meets_dicl_tpu_torch.ops import corr as tcorr
 from raft_meets_dicl_tpu_torch.ops import upsample as tup
+from test_torch_port_train import port_on_one_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

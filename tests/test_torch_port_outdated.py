@@ -61,6 +61,7 @@ from test_torch_port_dicl_models import (
     LIVE_F32_REL, ROOT, _batch, _cfg, _check_stats, _jax_step, _max_rel,
     _port_step, _rel, _variables, _widened)
 from test_torch_port_train import _one_thread
+from test_torch_port_train import port_on_one_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

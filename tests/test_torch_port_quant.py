@@ -31,6 +31,7 @@ from raft_meets_dicl_tpu_torch.models.impls import raft as traft
 from raft_meets_dicl_tpu_torch.models.impls import raft_fs as traft_fs
 from raft_meets_dicl_tpu_torch.ops import corr as tcorr
 from raft_meets_dicl_tpu_torch.ops import quant as tquant
+from test_torch_port_train import port_on_one_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

@@ -1,6 +1,7 @@
 """PyTorch port: the whole ``raft/baseline`` forward held against the JAX
-``RaftModule`` on the CPU, with weights bridged from the JAX init, at
-1x64x96 and 3 iterations: every iteration's flow, in float32 and under the
+``RaftModule`` on the CPU, with weights bridged from JAX variables drawn
+over the JAX init's shapes as flax initializes them, at 1x64x96 and 3
+iterations: every iteration's flow, in float32 and under the
 bf16 mixed-precision policy."""
 
 import jax
@@ -12,6 +13,8 @@ import torch
 import raft_meets_dicl_tpu.models as jmodels
 import raft_meets_dicl_tpu_torch.models as tmodels
 from raft_meets_dicl_tpu_torch import convert, evaluation
+from test_torch_port_train import _flax_init
+from test_torch_port_train import port_on_one_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 
@@ -47,8 +50,8 @@ def images():
 def _run_both(mixed_precision, images, **args):
     img1, img2 = (jnp.asarray(x) for x in images)
     jspec = jmodels.load(_cfg(mixed_precision))
-    variables = jax.jit(lambda k: jspec.model.init(k, img1, img2))(
-        jax.random.PRNGKey(1))
+    variables = jax.tree.map(jnp.asarray,
+                             _flax_init(jspec.model, 1, img1, img2))
     expected = jax.jit(lambda v: jspec.model.apply(v, img1, img2, **args))(
         variables)
 

@@ -47,6 +47,7 @@ from raft_meets_dicl_tpu_torch.strategy import checkpoint as tchk
 from raft_meets_dicl_tpu_torch.strategy import training as ttraining
 from raft_meets_dicl_tpu_torch.testing import faults as tfaults
 from test_torch_port_train import _one_thread, _write_tree
+from test_torch_port_train import port_on_one_thread  # noqa: F401
 
 # the modules (each package's ``cmd`` binds ``train`` to the function)
 jtrain_cmd = importlib.import_module("raft_meets_dicl_tpu.cmd.train")

@@ -14,6 +14,7 @@ import torch
 import raft_meets_dicl_tpu_torch.models as tmodels
 from raft_meets_dicl_tpu_torch import serve
 from raft_meets_dicl_tpu_torch.serve import loadgen
+from test_torch_port_train import port_on_one_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 
@@ -102,8 +103,13 @@ def test_dispatch_failure_completes_tickets_with_a_typed_cause():
 
 
 def test_session_rejects_unported_options():
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 7 item 2"):
-        serve.ServeSession(_spec(), "64x96", video=True, device="cpu")
+    """``mesh`` is still refused by name; ``video`` is ported and builds
+    its warm-start step on the CPU."""
+    with pytest.raises(NotImplementedError, match="ROADMAP slice 7 item 6"):
+        serve.ServeSession(_spec(), "64x96", mesh="-1", device="cpu")
+    session = serve.ServeSession(_spec(), "64x96", video=True, device="cpu")
+    assert session.video and session._warm_fn.warm
+    assert session.warm_iterations == session._warm_fn.iterations
 
 
 def test_session_on_cuda_without_cuda_raises():
@@ -147,9 +153,11 @@ def test_port_and_chip_smoke_import_no_jax():
     files = sorted((ROOT / "raft_meets_dicl_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
-    # the lookup kernels, the quantized tier and the scripts subpackage
+    # the lookup kernels, the quantized tier, the scripts subpackage and
+    # the video engine
     for new in ("ops/lookup.py", "ops/quant.py", "scripts/__init__.py",
-                "scripts/probe_fused_lookup.py"):
+                "scripts/probe_fused_lookup.py", "video/cache.py",
+                "video/sequence.py", "video/warmstart.py"):
         assert ROOT / "raft_meets_dicl_tpu_torch" / new in files, new
     for path in files:
         for top in _imported_top_levels(path):

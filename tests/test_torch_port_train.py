@@ -239,6 +239,35 @@ def variables(batch):
 _RUNS = {}
 
 
+def _init_like(path, leaf, rs):
+    """A value for a JAX variable as flax initializes it, from ``rs``:
+    kernels lecun-normal, biases zero, norm scales one; batch statistics
+    away from their (0, 1) init."""
+    name, shape = path[-1].key, leaf.shape
+    if name == "kernel":
+        value = rs.randn(*shape) / np.sqrt(np.prod(shape[:-1]))
+    elif name == "bias":
+        value = np.zeros(shape)
+    elif name == "scale":
+        value = np.ones(shape)
+    elif name == "mean":
+        value = 0.3 * rs.randn(*shape)
+    else:
+        value = 0.5 + rs.rand(*shape)
+    return value.astype(np.float32)
+
+
+def _flax_init(model, seed, *args, **kwargs):
+    """Variables (numpy tree) of the JAX ``model``'s init over
+    ``jax.eval_shape`` (no init program compiled), drawn from ``seed`` as
+    flax initializes them (``_init_like``)."""
+    shapes = jax.eval_shape(lambda k: model.init(k, *args, **kwargs),
+                            jax.random.PRNGKey(0))
+    rs = np.random.RandomState(seed)
+    return jax.tree_util.tree_map_with_path(
+        lambda path, leaf: _init_like(path, leaf, rs), shapes)
+
+
 @contextlib.contextmanager
 def _one_thread():
     """The port's side of the lockstep on one thread. ``torch.set_num_threads``
@@ -256,6 +285,17 @@ def _one_thread():
         yield
     finally:
         torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def port_on_one_thread():
+    """A module's tests, its fixtures included, run the port on one torch
+    thread (``_one_thread``; a test may still ask for more inside). Beside
+    the suite's other workers, an op spread over every core waits on
+    threads that are not running: a 0.4 s encoder forward took 70 s there.
+    Test files import this fixture to take it up."""
+    with _one_thread():
+        yield
 
 
 def _lockstep(variables, batch, frozen, corr_grad_stop=False):

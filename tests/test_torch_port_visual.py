@@ -42,6 +42,7 @@ import raft_meets_dicl_tpu_torch.ops.warp as twarp
 import raft_meets_dicl_tpu_torch.video.products as tproducts
 from raft_meets_dicl_tpu_torch import visual as tvisual
 from raft_meets_dicl_tpu_torch.visual import colormaps
+from test_torch_port_train import port_on_one_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

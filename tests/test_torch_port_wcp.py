@@ -37,6 +37,7 @@ from raft_meets_dicl_tpu.ops.pool import avg_pool2d as javg_pool2d
 from raft_meets_dicl_tpu_torch.ops import pool as tpool
 from raft_meets_dicl_tpu_torch.ops import windowed as twindowed
 from test_torch_port_train import _one_thread
+from test_torch_port_train import port_on_one_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

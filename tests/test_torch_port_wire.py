@@ -52,6 +52,7 @@ from raft_meets_dicl_tpu_torch.models import wire as twire
 from raft_meets_dicl_tpu_torch.serve import loadgen
 from test_torch_port_train import (GRADIENT, LOSS_REL, OPTIMIZER,
                                    _cfg, _check_grads, _one_thread)
+from test_torch_port_train import port_on_one_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

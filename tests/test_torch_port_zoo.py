@@ -45,6 +45,7 @@ from test_torch_port_dicl_models import (
 from test_torch_port_dicl_models import \
     test_train_step_matches_jax as _check_train_step
 from test_torch_port_train import _one_thread
+from test_torch_port_train import port_on_one_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 
